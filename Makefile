@@ -1,16 +1,16 @@
-# Common targets. The TPU targets need the attached chip; everything
+# Common targets. chip-smoke and bench need an NVIDIA card; everything
 # else runs on CPU (the conftest pins the platform and enables x64).
 
-.PHONY: test golden tpu-check bench dryrun soak
+.PHONY: test golden chip-smoke bench dryrun
 
 test:
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q -m 'not slow'
 
 golden:
 	python scripts/golden_check.py
 
-tpu-check:
-	python scripts/tpu_check.py
+chip-smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py

@@ -1,8 +1,8 @@
-"""Multi-chip usage: one entry point that scales (run on any host).
+"""Multi-card usage: one entry point that scales (run on any host).
 
-With real TPUs, drop the CPU-mesh setup lines — `mesh="auto"` lays a
-(data, model) mesh over every visible chip. This script demonstrates on
-a virtual 8-device CPU mesh (no TPU required):
+On a host with several GPUs, run with GDCA_EXAMPLE_GPUS=1 — `mesh="auto"`
+lays a (data, model) mesh over every visible card. By default this
+script demonstrates on a virtual 8-device CPU mesh (no card required):
 
     python examples/multichip.py path/to/family.fasta.gz
 """
@@ -15,9 +15,9 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
 import jax
 
 # default: demonstrate on the virtual CPU mesh (checking the backend
-# would itself initialize it). On a real TPU host run with
-# GDCA_EXAMPLE_TPU=1 to use the chips instead.
-if os.environ.get("GDCA_EXAMPLE_TPU", "") != "1":
+# would itself initialize it). On a GPU host run with
+# GDCA_EXAMPLE_GPUS=1 to use the cards instead.
+if os.environ.get("GDCA_EXAMPLE_GPUS", "") != "1":
     jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(
@@ -27,7 +27,7 @@ import gaussdca_tpu as g
 path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
     os.path.dirname(__file__), "..", "tests", "data", "small.fasta.gz")
 
-# single-chip and sharded runs of the same family, same entry point
+# single-device and sharded runs of the same family, same entry point
 r1 = g.gdca(path)
 r8 = g.gdca(path, mesh="auto")          # or mesh=(4, 2), or a jax Mesh
 
@@ -38,4 +38,4 @@ print("top-5 (sharded):", [(i, j, round(s, 4)) for i, j, s in r8[:5]])
 # to summation-order noise (~1e-4 relative through the f32 solve)
 agree = all(abs(a[2] - b[2]) < 5e-4 * max(1.0, abs(a[2]))
             for a, b in zip(sorted(r1.ranking), sorted(r8.ranking)))
-print("single-chip == sharded (to f32 summation order):", agree)
+print("single-device == sharded (to f32 summation order):", agree)

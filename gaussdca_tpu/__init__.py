@@ -1,6 +1,6 @@
-"""TPU-native Gaussian Direct Coupling Analysis.
+"""Gaussian Direct Coupling Analysis on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 carlobaldassi/GaussDCA.jl (protein contact prediction from multiple
 sequence alignments). See SURVEY.md at the repo root for the structural
 map of the reference and how each layer is realized here.

@@ -5,10 +5,10 @@
 reweighting -> weighted frequencies -> pseudocount -> covariance ->
 Cholesky inverse -> FN or DI scores -> APC -> min-separation ranking.
 
-Structure (TPU-first): host does ingest/dedup and the final sort; one
-jitted program does everything in between, so XLA fuses the statistical
-stages around the two hot spots (the all-pairs identity matmul and the
-dense SPD inverse).
+Structure: the host does ingest/dedup and the final sort; one jitted
+program does everything in between, so XLA fuses the statistical stages
+around the two hot spots (the all-pairs identity matmul and the dense
+SPD inverse).
 """
 
 from __future__ import annotations
@@ -75,10 +75,10 @@ def scores_pipeline(Z, pc, theta_value, *, q: int, score: str,
     threshold and decouples exactly from the covariance, see
     stats/pseudocount.py).
     ``precision``: ambient matmul precision for every dot in the pipeline
-    — load-bearing on TPU, where the f32 default is single-pass bf16
-    multiplies: the Cholesky/score stages then lose ~3 significant
-    digits through cond(C) amplification (measured 0.024 max abs DI
-    error vs golden at "default", 1e-4 at "highest").
+    — load-bearing in f32: on the GPU a DEFAULT f32 dot may run in TF32
+    (a 10-bit mantissa), and the Cholesky/score stages amplify that
+    rounding by cond(C). "highest" keeps every dot without an explicit
+    precision in full f32.
     """
     with jax.default_matmul_precision(precision):
         return _scores_body(Z, pc, theta_value, q=q, score=score,
@@ -105,26 +105,19 @@ def _stats_body(Z, pc, theta_value, *, q, theta_is_auto, dtype,
     # under these labels, the observability the reference lacks entirely.
     theta: Union[str, Any] = "auto" if theta_is_auto else theta_value
     row_stats_fn = None
-    match_counts_fn = None
     if use_pallas:
         from gaussdca_tpu.ops import dispatch
-        ks = dispatch.kernels()
-        row_stats_fn = ks.get("row_stats_fn")
-        match_counts_fn = ks.get("match_counts_fn")
+        row_stats_fn = dispatch.kernels()["row_stats_fn"]
     with jax.named_scope("reweight"):
         if row_stats_fn is not None:
-            # Streaming path: O(M) memory, tiled MXU distance kernel.
+            # streaming path: O(M) memory, int8 one-hot GEMMs
             W, Meff, th = reweight.compute_weights_streaming(
                 Z, theta, q, row_stats_fn, dtype=dtype, m_true=m_true,
                 n_true=n_true)
         else:
-            # dense path; match_counts_fn (e.g. GDCA_DISTANCE_IMPL=mxu)
-            # swaps the [M, M] count kernel, jnp fallback otherwise
+            # dense jnp reference ([M, M] counts; the f64 golden mode)
             W, Meff, th = reweight.compute_weights(
-                Z, theta, dtype=dtype,
-                match_counts_fn=(functools.partial(match_counts_fn, q=q)
-                                 if match_counts_fn is not None else None),
-                m_true=m_true, n_true=n_true, q=q)
+                Z, theta, dtype=dtype, m_true=m_true, n_true=n_true, q=q)
     with jax.named_scope("frequencies"):
         # Stream the frequency accumulation once the one-hot would exceed
         # ~1 GB (keeps 1e5+-sequence MSAs on a single chip).
@@ -168,10 +161,10 @@ def _scores_jit(Z, pc, theta_value, *, q: int, score: str,
         n_true=n_true, precision=precision)
 
 
-# Above this N*s the single-program pipeline's co-resident (Ns)^2
-# buffers exceed single-chip HBM (measured 19 GB at Ns=20000 vs
-# 15.75 GB); splitting the dispatch frees the statistics buffers before
-# the solve/score stage allocates its own.
+# At and above this N*s the pipeline runs as two programs, so the
+# statistics buffers are freed before the solve/score stage allocates
+# its own co-resident (Ns)^2 buffers. Correctness-neutral; the value is
+# not yet measured on the H100 (ROADMAP.md lists it).
 _SPLIT_PIPELINE_MIN_NS = 16384
 
 
@@ -338,10 +331,9 @@ def _bucket_pad(tokens: np.ndarray, cfg: GDCAConfig):
 # canonical list — the CLI imports it into its artifact cache key, and
 # tests/test_cli.py scans the package source for GDCA_* env reads to
 # fail the build if a result-affecting knob is added without extending
-# it (the round-4/5 drift class: a new knob silently missing from both
+# it (the drift class: a new knob silently missing from both
 # keys).
-_TRACE_ENV_KNOBS = ("GDCA_DISTANCE_IMPL", "GDCA_DI_FUSED",
-                    "GDCA_DI_TILED", "GDCA_DI_RB", "GDCA_DI_SHARDED",
+_TRACE_ENV_KNOBS = ("GDCA_DI_TILED", "GDCA_DI_RB", "GDCA_DI_SHARDED",
                     "GDCA_DI_NS_ITERS", "GDCA_SOLVE_SYRK",
                     "GDCA_SOLVE_RES_PREC")
 
@@ -521,15 +513,15 @@ def gdca(
     can't be Greek). Returns a GDCAResult — an iterable of 1-based
     (i, j, score) triples sorted by descending score, plus run metadata.
 
-    TPU-native extras (all optional; results are identical either way):
+    Extras (all optional; results are identical either way):
 
     - ``top_k``: return only the k best pairs, selected on device so the
       full [N, N] score matrix never leaves the chip.
     - ``m_bucket`` / ``n_bucket``: pad the sequence count / alignment
       width to a bucket multiple so similar-shaped families share one
       compiled program (batch mode; padding is masked exactly).
-    - ``precision``: ambient matmul precision ("highest" default — the
-      TPU f32 default is single-pass bf16, which costs ~3 digits).
+    - ``precision``: ambient matmul precision ("highest" default — a
+      DEFAULT f32 dot may run in TF32 on the GPU, which costs ~3 digits).
     - ``mesh``: a ``jax.sharding.Mesh`` (or "auto" to build one over all
       visible devices) — runs the multi-chip sharded pipeline
       (data-parallel sequences + model-parallel statistics) instead of

@@ -44,7 +44,7 @@ from gaussdca_tpu.core.config import GDCAConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gaussdca_tpu",
-        description="TPU-native Gaussian Direct Coupling Analysis: "
+        description="Gaussian Direct Coupling Analysis on JAX: "
                     "contact-prediction rankings from MSA files.")
     p.add_argument("inputs", nargs="+", help="FASTA alignment file(s), "
                    "optionally gzipped")
@@ -61,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compute dtype (default: f64 if x64 enabled, "
                         "else f32)")
     p.add_argument("--fallback", action="store_true",
-                   help="force pure-jnp kernels (no Pallas)")
+                   help="force the pure-jnp reference formulations")
     p.add_argument("--top-k", type=int, default=None,
                    help="emit only the top K pairs")
     p.add_argument("--cache-dir", default=None,
@@ -79,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "class")
     p.add_argument("--compile-cache", default="auto",
                    help="persistent XLA compilation cache dir; 'auto' = "
-                        "~/.cache/gaussdca_tpu/xla, 'none' disables")
+                        "$JAX_COMPILATION_CACHE_DIR when set, else "
+                        "<checkout>/.jax_cache; 'none' disables")
     p.add_argument("--no-prefetch", action="store_true",
                    help="disable threaded ingest prefetch")
     p.add_argument("--warm-compile", action="store_true",
@@ -89,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "in-process executable cache (hides the "
                         "per-class executable load; single-chip batch "
                         "mode only, needs prefetch; results are "
-                        "identical — opt-in pending on-chip "
-                        "measurement, see PERFORMANCE.md)")
+                        "identical — opt-in pending a measurement "
+                        "on the card)")
     p.add_argument("--profile-dir", default=None,
                    help="write a jax.profiler trace of the batch here")
     p.add_argument("--mesh", default=None, metavar="DPxTP|auto",
@@ -169,7 +170,7 @@ def _cache_key(path: str, cfg: GDCAConfig, top_k: Optional[int],
            # the ONE canonical trace-time knob list (api.py) — a knob
            # listed there must never be missing here, or the artifact
            # cache serves results computed under a different kernel
-           # path / iteration count / precision (round-5 review finding:
+           # path / iteration count / precision (a past finding:
            # GDCA_DI_NS_ITERS, GDCA_SOLVE_{SYRK,RES_PREC} were missing
            # from both keys when added)
            tuple(os.environ.get(k, "") for k in _TRACE_ENV_KNOBS),
@@ -331,13 +332,14 @@ def run_family(path: str, cfg: GDCAConfig, out_dir: str,
         log.emit()
         return None
 
-    from gaussdca_tpu.ops.dispatch import _on_tpu
+    from gaussdca_tpu.ops import dispatch
     from gaussdca_tpu.utils.flops import pipeline_flops
     # account the EXECUTED program: bucket-padded dims and the kernel
     # family the dispatch actually took (f64 golden / forced-fallback
     # runs execute the gemm scaffold, not the dense-tile bm plan)
     (Mp, Np), _, _ = api._bucket_shape((result.M, result.N), cfg)
-    bm = (not cfg.resolve_fallback() and _on_tpu()
+    bm = (not cfg.resolve_fallback()
+          and dispatch.formulation().di_batch_minor
           and cfg.resolve_dtype().name == "float32")
     fl = pipeline_flops(Mp, Np, result.q, score=cfg.score,
                         auto_theta=cfg.auto_theta, bm=bm,
@@ -388,19 +390,42 @@ def _retryable(e: BaseException) -> bool:
     return any(m in msg for m in _TRANSIENT_MARKERS)
 
 
-def _setup_compile_cache(spec: str) -> None:
+# the fixed in-checkout compile cache (listed in .gitignore): a path
+# that never moves, so one checkout's runs find each other's programs
+DEFAULT_COMPILE_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def compile_cache_dir(spec: str = "auto") -> Optional[str]:
+    """The persistent compile-cache directory ``spec`` selects.
+
+    ``auto``: None when ``JAX_COMPILATION_CACHE_DIR`` is set (JAX then
+    reads that directory itself and no other may be set in code), else
+    ``DEFAULT_COMPILE_CACHE``. ``none``: None. Anything else: that path.
+    """
     if spec == "none":
-        return
+        return None
+    if spec == "auto":
+        if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+            return None
+        return DEFAULT_COMPILE_CACHE
+    return spec
+
+
+def setup_compile_cache(spec: str = "auto") -> None:
+    """Point JAX's persistent compile cache at ``compile_cache_dir``."""
     import jax
-    path = (os.path.join(os.path.expanduser("~"), ".cache",
-                         "gaussdca_tpu", "xla")
-            if spec == "auto" else spec)
+
+    path = compile_cache_dir(spec)
+    if path is None:
+        return
     try:
         os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except (OSError, AttributeError):
-        pass  # cache is an optimization only
+    except OSError:
+        return  # cache is an optimization only
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -418,25 +443,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         n_bucket=args.n_bucket,
     )
     if args.dtype == "float64":
-        # f64 is only honored when x64 is enabled (CPU golden mode);
-        # without this the pipeline would silently downcast to f32
+        # f64 is only honored when x64 is enabled; without this the
+        # pipeline would silently downcast to f32
         import jax
         jax.config.update("jax_enable_x64", True)
-        # (querying the backend initializes it, which must not happen
-        # before jax.distributed.initialize in --distributed mode)
-        if not args.distributed and jax.default_backend() not in ("cpu",):
-            print(json.dumps({"warning": "float64 requested on a "
-                              f"{jax.default_backend()} backend; TPUs "
-                              "have no f64 hardware"}),
-                  file=sys.stderr, flush=True)
-    _setup_compile_cache(args.compile_cache)
+    setup_compile_cache(args.compile_cache)
     mesh_spec = _parse_mesh(args.mesh)  # validate early; resolve later
     # --distributed alone round-robins WHOLE families across processes
     # (each process runs its own independent program on its own
     # host-local devices). --distributed WITH --mesh is the POD
     # execution model: every process executes the SAME sharded program
-    # over one global mesh spanning all processes' devices (ICI within
-    # a host, DCN across hosts) — the multi-host scale-out of the
+    # over one global mesh spanning all processes' devices (NVLink
+    # within a host, the network across hosts) — the multi-host
+    # scale-out of the
     # reference's only parallelism (/root/reference/README.md:92-94).
     pod_mesh = bool(args.distributed and mesh_spec is not None)
 

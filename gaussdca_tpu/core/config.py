@@ -2,7 +2,7 @@
 
 Mirrors the reference's keyword arguments, defaults, and validation semantics
 (``/root/reference/src/GaussDCA.jl:8-15`` for defaults, ``:49-65`` for
-``check_arguments``), plus TPU-specific knobs (dtype, fallback, mesh) that the
+``check_arguments``), plus accelerator knobs (dtype, fallback, mesh) that the
 reference — a single-process CPU package — has no analog for.
 """
 
@@ -47,17 +47,18 @@ class GDCAConfig:
     - ``min_separation``: minimum |i-j| for ranked pairs, >= 1. Default 5.
     - ``remove_dups``: drop duplicate sequences after ingest. Default False.
 
-    TPU-native additions:
+    Additions:
 
     - ``dtype``: compute dtype for the statistical pipeline. ``None``
       selects float64 when JAX x64 is enabled (golden/CPU mode), else
-      float32 (TPU mode).
+      float32 (the accelerator mode).
     - ``force_fallback``: use the pure-jnp reference implementations of
-      every kernel instead of the Pallas/TPU-optimized paths. Analog of the
+      every stage instead of the platform's accelerated formulations
+      (ops/dispatch.py). Analog of the
       reference's ``DCAUTILS_FORCE_FALLBACK`` env switch
       (test/runtests.jl:79); also honored via the ``GDCA_FORCE_FALLBACK``
       environment variable.
-    - ``precision``: jax.lax matmul precision for the MXU paths.
+    - ``precision``: ambient jax.lax matmul precision of the pipeline.
     - ``m_bucket``: pad the sequence count up to a multiple of this before
       jitting (0 = exact shapes). Padding rows are fully masked out of the
       statistics; families whose depths land in the same bucket share one
@@ -159,7 +160,7 @@ class GDCAConfig:
                 raise ValueError(
                     "dtype=float64 requires jax x64 mode: call "
                     'jax.config.update("jax_enable_x64", True) before any '
-                    "computation (CPU only — TPUs have no f64 hardware)")
+                    "computation")
             return dt
         return jnp.dtype(jnp.float64 if jax.config.jax_enable_x64
                          else jnp.float32)

@@ -13,7 +13,7 @@ Reproduces the ingest contract the reference consumes from DCAUtils'
 - ragged post-filter lengths are an error.
 
 The output is sequence-major ``[M, N]`` (the reference is position-major
-``N x M``; sequence-major is the natural layout for the TPU pipeline where
+``N x M``; sequence-major is the natural layout for the device pipeline where
 M is the data-parallel axis). Parsing happens on the host: a native C++
 parser (native/fasta_native.cpp, loaded via io/native.py) when available,
 else the pure-NumPy implementation here — the two are cross-validated in

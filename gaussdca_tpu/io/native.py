@@ -2,8 +2,8 @@
 
 The reference's ingest is compiled Julia; the analog here is a small C++
 library (zlib + tokenizer) loaded via ctypes — no pybind11 dependency.
-The shared object is built lazily with g++ on first use and cached next
-to the source; any failure (no compiler, no zlib, unreadable cache)
+The shared object is built lazily with g++ on first use, next to the
+source; any failure (no compiler, no zlib, unreadable cache)
 degrades silently to the pure-NumPy parser in io/fasta.py, which is also
 the behavior under ``GDCA_NO_NATIVE=1``.
 
@@ -29,6 +29,7 @@ _SO_NAME = "_fasta_native.so"
 
 _lock = threading.Lock()
 _lib = None
+_lib_path = None
 _lib_failed = False
 
 
@@ -52,32 +53,22 @@ def _build(src: str, out: str) -> bool:
     return False
 
 
-def _so_path() -> Optional[str]:
-    """Locate or build the shared library; None if unavailable."""
+def _so_path(rebuild: bool = False) -> Optional[str]:
+    """Locate or build the shared library next to its source (inside the
+    checkout; ``*.so`` is in .gitignore); None if unavailable.
+    ``rebuild`` ignores an existing build (one made on another machine
+    may not load here)."""
     if not os.path.exists(_SRC):
         return None
-    # build into the source dir if writable, else a per-user cache; an
-    # existing fresh .so at EITHER location short-circuits the build
-    # (a read-only source dir must not cost two g++ runs per process)
-    cache = os.path.join(os.path.expanduser("~"), ".cache", "gaussdca_tpu")
-    targets = [os.path.join(os.path.dirname(_SRC), _SO_NAME),
-               os.path.join(cache, _SO_NAME)]
-    src_mtime = os.path.getmtime(_SRC)
-    for cand in targets:
-        if os.path.exists(cand) and os.path.getmtime(cand) >= src_mtime:
-            return cand
-    for out in targets:
-        try:
-            os.makedirs(os.path.dirname(out), exist_ok=True)
-        except OSError:
-            continue
-        if _build(_SRC, out):
-            return out
-    return None
+    out = os.path.join(os.path.dirname(_SRC), _SO_NAME)
+    if not rebuild and os.path.exists(out) and \
+            os.path.getmtime(out) >= os.path.getmtime(_SRC):
+        return out
+    return out if _build(_SRC, out) else None
 
 
 def _load():
-    global _lib, _lib_failed
+    global _lib, _lib_path, _lib_failed
     if _lib is not None or _lib_failed:
         return _lib
     with _lock:
@@ -86,13 +77,17 @@ def _load():
         if os.environ.get("GDCA_NO_NATIVE"):
             _lib_failed = True
             return None
-        path = _so_path()
-        if path is None:
-            _lib_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError:
+        lib = None
+        for rebuild in (False, True):
+            path = _so_path(rebuild)
+            if path is None:
+                break
+            try:
+                lib = ctypes.CDLL(path)
+                break
+            except OSError:
+                continue
+        if lib is None:
             _lib_failed = True
             return None
         lib.gdca_parse.restype = ctypes.c_void_p
@@ -117,11 +112,22 @@ def _load():
         lib.gdca_msa_free.restype = None
         lib.gdca_msa_free.argtypes = [ctypes.c_void_p]
         _lib = lib
+        _lib_path = path
         return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def backend() -> Optional[str]:
+    """Which inflater the loaded library links: "libdeflate" or "zlib"
+    (None when the native parser is unavailable). Read from the shared
+    object's dynamic string table, so a cached build reports correctly."""
+    if _load() is None:
+        return None
+    with open(_lib_path, "rb") as fh:
+        return "libdeflate" if b"libdeflate.so" in fh.read() else "zlib"
 
 
 def parse_fasta(path: str, max_gap_fraction: float

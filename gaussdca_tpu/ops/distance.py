@@ -1,42 +1,35 @@
-"""All-pairs sequence-identity kernels (hot loop #1).
+"""All-pairs sequence-identity row statistics (hot loop #1).
 
 The reference's inner loop is a threaded, bit-packed XOR/popcount Hamming
 kernel over all M(M-1)/2 sequence pairs (SURVEY.md 2.5; the q < 32 limit at
 /root/reference/src/GaussDCA.jl:26 exists because of its 5-bit packing).
-A TPU is not a popcount machine — it is a matmul machine, so the TPU-native
-formulation is
+On an accelerator the same counts are a matrix product,
 
     matches[a, b] = sum_k sum_c 1[Z_ak = c] * 1[Z_bk = c]  =  (E E^T)[a, b]
 
-with E the {0,1} one-hot expansion: an [M, N*q] x [N*q, M] matmul on the
-MXU. bf16 one-hot inputs with f32 accumulation are exact (counts are
-integers <= N << 2^24), so the optimized path agrees bit-for-bit with the
-pure-jnp fallback in stats/reweight.py.
+with E the {0,1} one-hot expansion [M, N*q]. int8 one-hot operands with
+int32 accumulation are exact, so every formulation here agrees bit-for-bit
+with the pure-jnp reference ``row_stats_rect_jnp``.
 
-Two implementations:
+The pipeline never needs the [M, M] match matrix, only two per-row
+reductions of it (``rowsum[a] = sum_b matches(a, b)`` and
+``below[a] = #{b : hamming(a, b) < thresh}``), so every function here
+returns O(M) output:
 
-- ``match_counts_mxu``: the XLA formulation — one-hot einsum. XLA tiles it
-  onto the MXU; E materializes in HBM ([M, N*q] bf16).
-- ``match_counts_pallas``: tiled Pallas kernel that never materializes E:
-  each (TM, TN) grid cell holds the raw token tiles in VMEM, expands
-  one-hot per symbol on the fly, and accumulates q partial [TM, N] x
-  [N, TN] matmuls into an int32 tile. HBM traffic drops from O(M*N*q) to
-  O(M*N) + O(M^2) output.
+- ``row_stats_xla``: the plain formulation. A ``lax.map`` over row blocks
+  of A runs one s8 x s8 -> s32 GEMM of the block's one-hot against the
+  one-hot of all of B, then the threshold count and the row sums. XLA
+  hands the GEMM to cuBLAS on the GPU; the [block, Mb] int32 product is
+  written and reread once per block. It is the mesh path's per-device
+  body (rectangular: a row block against all rows), where it beats the
+  kernel (PERF.md).
+- ``ops/row_stats_triton.py``: the fused, symmetry-halved Hopper kernel
+  for the square statistics of one card.
+- ``row_stats_rect_jnp``: the broadcast-compare reference (CPU tests and
+  the fallback twin of the mesh path).
 
-All Pallas kernels here use int8 one-hot operands with int32 MXU
-accumulation: counts are exact in any dtype, and the v5e MXU runs s8xs8
-at 2x the bf16 rate (measured 1.6x end-to-end on the row-stats kernel).
-
-``row_stats_sym_pallas`` additionally halves the FLOPs via the match
-symmetry D = D^T: the grid enumerates each unordered tile pair exactly
-once using the circulant covering b = (i + j') mod T, j' = 0..ceil(T/2)
-(for even T the j' = T/2 column is computed only for i < T/2). Each cell
-emits its tile's row- and column-reductions; a cheap segment-sum outside
-the kernel folds the column partials back into the row accumulators.
-
-All kernels pad M up to tile multiples with token 0, which matches no
-valid state (states are 1..q), so padded rows simply score 0 and are
-sliced away.
+Token 0 (padding) matches nothing, not even itself, in every formulation:
+padded rows and columns are inert.
 """
 
 from __future__ import annotations
@@ -45,743 +38,87 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+# bytes of the per-block [block, Mb] int32 product of ``row_stats_xla``
+_BLOCK_PRODUCT_BYTES = 2 ** 29
+# token-width alignment: K = N*q is then a multiple of 32 (q odd or
+# even), which cuBLAS' int8 GEMM wants — at M=100,000 x N=200 it halved
+# the row-stats time on the H100 against an 8-token alignment (PERF.md)
+_K_ALIGN = 32
+# row-block alignment of ``plan_block_rows``
+_ROW_ALIGN = 128
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-@functools.partial(jax.jit, static_argnames=("q",))
-def match_counts_mxu(Z: jax.Array, q: int = 21) -> jax.Array:
-    """[M, M] identity counts via one-hot einsum (XLA MXU path)."""
-    M, N = Z.shape
-    states = jnp.arange(1, q + 1, dtype=Z.dtype)
-    E = (Z[:, :, None] == states).astype(jnp.bfloat16).reshape(M, N * q)
-    D = jnp.einsum("ak,bk->ab", E, E,
-                   preferred_element_type=jnp.float32)
-    return D.astype(jnp.int32)
-
-
-def _match_tile(za, zb, q: int, unroll: bool = True) -> jax.Array:
-    """[TM, TN] int32 match counts of two token tiles via q s8 matmuls.
-
-    ``unroll=False`` keeps only one iteration's one-hot temporaries live
-    (Mosaic materializes ALL of them under full unroll — ~2*q*TM*Np
-    bytes — which blows the 16 MB scoped-VMEM limit for wide tiles); it
-    costs ~40% throughput, so it is only chosen when full unroll cannot
-    fit (see ``_plan_tiles``).
-    """
-    # Widen to i32 for the comparisons: Mosaic/v5e has no 8-bit vector cmp;
-    # the one-hot operands themselves go to the MXU as int8.
-    za = za.astype(jnp.int32)
-    zb = zb.astype(jnp.int32)
-
-    def body(c, acc):
-        a = (za == c).astype(jnp.int8)
-        b = (zb == c).astype(jnp.int8)
-        # precision pinned to DEFAULT: int8 counts are exact at any MXU
-        # precision, and an ambient default_matmul_precision("highest")
-        # context (api.scores_pipeline) would otherwise reach this dot —
-        # Mosaic rejects multi-pass precision on integer operands.
-        return acc + jax.lax.dot_general(
-            a, b, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-            precision=jax.lax.Precision.DEFAULT)
-
-    acc = jnp.zeros((za.shape[0], zb.shape[0]), jnp.int32)
-    # Mosaic supports only unroll in {1, num_steps}
-    return jax.lax.fori_loop(1, q + 1, body, acc, unroll=bool(unroll))
-
-
-def _match_kernel(za_ref, zb_ref, out_ref, *, q: int, unroll: bool = True):
-    """One (TM, TN) tile: accumulate one-hot matmuls over the q symbols."""
-    out_ref[:] = _match_tile(za_ref[:], zb_ref[:], q, unroll)
-
-
-def _row_stats_kernel(thresh_ref, za_ref, zb_ref, sum_ref, cnt_ref,
-                      *, q: int, n_valid: int, unroll: bool = True):
-    """Grid cell (i, j): fold tile statistics into the row accumulators.
-
-    Never materializes the [M, M] match matrix in HBM — each (TM, TN)
-    tile is reduced to per-row (match-sum, neighbor-count) partials in
-    VMEM and accumulated across the j grid axis (output blocks indexed by
-    i only are revisited, the standard Pallas reduction pattern).
-    """
-    j = pl.program_id(1)
-    tile = _match_tile(za_ref[:], zb_ref[:], q, unroll).astype(jnp.float32)
-
-    rs = jnp.sum(tile, axis=1, keepdims=True)                  # [TM, 1]
-    thresh = thresh_ref[0, 0]
-    # neighbor iff hamming = n_valid - matches < thresh (strict, like the
-    # reference); padded rows/cols have 0 matches -> hamming = n_valid,
-    # never below thresh for theta <= 1.
-    below = jnp.sum(((n_valid - tile) < thresh).astype(jnp.float32),
-                    axis=1, keepdims=True)
-
-    @pl.when(j == 0)
-    def _():
-        sum_ref[:] = rs
-        cnt_ref[:] = below
-
-    @pl.when(j != 0)
-    def _():
-        sum_ref[:] = sum_ref[:] + rs
-        cnt_ref[:] = cnt_ref[:] + below
-
-
-def _plan_tiles(N: int, q: int):
-    """(tile_m, unroll) fitting the 16 MB scoped-VMEM limit.
-
-    Full unroll materializes ~(2q + 8) * tile * Np bytes of one-hot and
-    widened-i32 temporaries (measured: 29 MB at tile=128, Np=4096,
-    q=21); when no tile >= 128 fits under a 12 MB budget, fall back to
-    unroll=1 (temporaries ~10 * tile * Np) with a larger tile.
-
-    384 is preferred over 512: the round-4 on-chip A/B at the bench
-    shape (M=32768, Np=384, q=21) measured tile=384 at 1.039e10
-    pairs/s (335 TF-equiv) vs tile=512 at 9.85e9 (318) — +5.5%; the
-    smaller tile halves VMEM pressure (more headroom for DMA/compute
-    overlap) and the per-MAC expansion difference (1/384 vs 1/512) is
-    below the MXU-bound regime's sensitivity. 512 is not a candidate
-    at all: the fit conditions are monotone in tile, so any shape that
-    fits 512 fits 384 and takes it first (tile=512 stays reachable
-    only via an explicit ``tile_m``, e.g. the A/B legs).
-    """
-    Np = _round_up(max(N, 128), 128)
-    per = (2 * q + 8) * Np
-    for tile in (384, 256, 128):
-        if tile * per <= 12 * 2 ** 20:
-            return tile, True
-    for tile in (384, 256, 128):
-        if 10 * tile * Np <= 10 * 2 ** 20:
-            return tile, False
-    return 128, False
-
-
-@functools.partial(jax.jit, static_argnames=("q", "tile_m", "interpret"))
-def row_stats_pallas(Z: jax.Array, thresh: jax.Array, q: int = 21, *,
-                     tile_m: int = 0, interpret: bool = False):
-    """(row match-sums, row neighbor-counts) in O(M*N) memory.
-
-    Returns ``(rowsum [M] f32, below [M] f32)`` where
-    ``rowsum[a] = sum_b matches(a, b)`` (including the self term N) and
-    ``below[a] = #{b : hamming(a, b) < thresh}`` (including self when
-    thresh > 0). Drives both auto-theta (via sum(rowsum)) and the
-    similarity weights, replacing the reference's O(M^2) bit-packed loop
-    with tiled MXU work and O(M) output. ``tile_m=0`` auto-sizes for the
-    VMEM budget (wide alignments shrink the tile).
-    """
-    M, N = Z.shape
-    unroll = True
-    if tile_m == 0:
-        tile_m, unroll = _plan_tiles(N, q)
-    Mp = _round_up(max(M, tile_m), tile_m)
-    Np = _round_up(max(N, 128), 128)
-    Zp = jnp.zeros((Mp, Np), jnp.int8).at[:M, :N].set(Z.astype(jnp.int8))
-    th = jnp.asarray(thresh, jnp.float32).reshape(1, 1)
-
-    grid = (Mp // tile_m, Mp // tile_m)
-    kernel = functools.partial(_row_stats_kernel, q=q, n_valid=N,
-                               unroll=unroll)
-    rowsum, below = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_m, Np), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, Np), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((tile_m, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((Mp, 1), jnp.float32),
-            jax.ShapeDtypeStruct((Mp, 1), jnp.float32),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Mp * Mp * Np * q,
-            bytes_accessed=2 * Mp * Np + 8 * Mp,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(th, Zp, Zp)
-    return rowsum[:M, 0], below[:M, 0]
-
-
-def _match_tile_cached(ea_ref, zb, q: int) -> jax.Array:
-    """Match counts using the scratch-cached one-hot planes of side A.
-
-    ``ea_ref``: VMEM scratch [TM, Np*q] int8 holding (za == c) plane c at
-    columns [(c-1)*Np, c*Np). Side B expands on the fly. Caching A saves
-    half the VPU compare/convert work per cell — the kernel is
-    VPU-bound, so this is worth ~15% end-to-end (measured).
-    """
-    zb = zb.astype(jnp.int32)
-    Np = zb.shape[1]
-    acc = jnp.zeros((ea_ref.shape[0], zb.shape[0]), jnp.int32)
-    for c in range(1, q + 1):  # static: scratch slices must be static
-        a = ea_ref[:, (c - 1) * Np:c * Np]
-        b = (zb == c).astype(jnp.int8)
-        acc = acc + jax.lax.dot_general(
-            a, b, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-            precision=jax.lax.Precision.DEFAULT)
-    return acc
-
-
-def _row_stats_sym_kernel(thresh_ref, za_ref, zb_ref,
-                          rs_row_ref, cnt_row_ref, rs_col_ref, cnt_col_ref,
-                          *refs, q: int, n_valid: int, T: int):
-    """Grid cell (i, j'): tile (i, b = (i+j') mod T) of the match matrix.
-
-    The tile's row reductions (credited to block i) accumulate in place
-    across j' (block i is resident in VMEM for the whole inner loop); its
-    column reductions (credited to block b) land in slot j' of a [TM, J]
-    per-block scratch output, folded into the row accumulators outside
-    the kernel. Coverage: j' = 0 is the diagonal tile (column partials
-    zeroed — the row reduction already counts every in-block pair from
-    both sides); for even T the j' = T/2 column pairs blocks
-    {i, i + T/2} twice, so the i >= T/2 half is masked to zero (its tile
-    is still computed — a 1/T overhead — keeping every write dense).
-    """
-    i = pl.program_id(0)
-    jp = pl.program_id(1)
-    J = rs_col_ref.shape[1]
-    ea_ref = refs[0] if refs else None  # scratch, absent for wide N
-
-    if ea_ref is not None:
-        @pl.when(jp == 0)
-        def _():
-            # cache side A's one-hot planes for the whole inner j' loop
-            za = za_ref[:].astype(jnp.int32)
-            Np = za.shape[1]
-            for c in range(1, q + 1):
-                ea_ref[:, (c - 1) * Np:c * Np] = (za == c).astype(jnp.int8)
-
-        tile = _match_tile_cached(ea_ref, zb_ref[:], q).astype(jnp.float32)
-    else:
-        # wide-N path: unroll=False keeps one iteration's temporaries live
-        tile = _match_tile(za_ref[:], zb_ref[:], q,
-                           unroll=False).astype(jnp.float32)
-    thresh = thresh_ref[0, 0]
-    near = ((n_valid - tile) < thresh).astype(jnp.float32)
-
-    if T % 2 == 0:
-        live = jnp.where((jp != T // 2) | (i < T // 2), 1.0, 0.0)
-    else:
-        live = 1.0
-    rs = jnp.sum(tile, axis=1, keepdims=True) * live          # [TM, 1]
-    cnt = jnp.sum(near, axis=1, keepdims=True) * live
-    col_live = live * jnp.where(jp == 0, 0.0, 1.0)
-    rs_c = jnp.sum(tile, axis=0)[:, None] * col_live          # [TM, 1]
-    cnt_c = jnp.sum(near, axis=0)[:, None] * col_live
-
-    slot = jax.lax.broadcasted_iota(jnp.int32, rs_col_ref.shape, 1) == jp
-
-    @pl.when(jp == 0)
-    def _():
-        rs_row_ref[:] = rs
-        cnt_row_ref[:] = cnt
-        rs_col_ref[:] = jnp.zeros_like(rs_col_ref)
-        cnt_col_ref[:] = jnp.zeros_like(cnt_col_ref)
-
-    @pl.when(jp != 0)
-    def _():
-        rs_row_ref[:] = rs_row_ref[:] + rs
-        cnt_row_ref[:] = cnt_row_ref[:] + cnt
-        rs_col_ref[:] = jnp.where(slot, rs_c, rs_col_ref[:])
-        cnt_col_ref[:] = jnp.where(slot, cnt_c, cnt_col_ref[:])
-
-
-# budget for the one-hot plane scratch: the scoped-VMEM limit is 16 MB
-# and the token tiles / accumulator / outputs need the rest
-_SCRATCH_BUDGET = 8 * 2 ** 20
-
-
-@functools.partial(jax.jit, static_argnames=("q", "tile_m", "interpret"))
-def row_stats_sym_pallas(Z: jax.Array, thresh: jax.Array, q: int = 21, *,
-                         tile_m: int = 0, interpret: bool = False):
-    """Symmetry-halved ``row_stats_pallas``: same contract, ~2x fewer FLOPs.
-
-    Each unordered tile pair is computed once (circulant covering, see
-    ``_row_stats_sym_kernel``); the [M, M] match matrix never exists.
-    Returns ``(rowsum [M] f32, below [M] f32)`` identical to
-    ``row_stats_pallas``. ``tile_m=0`` picks the largest tile whose
-    one-hot scratch fits the VMEM budget (wide alignments shrink the
-    tile, and beyond ~N=3000 drop the scratch cache entirely).
-    """
-    M, N = Z.shape
-    if tile_m == 0:
-        tile_m, full_unroll = _plan_tiles(N, q)
-    else:
-        full_unroll = _round_up(max(N, 128), 128) * tile_m * q \
-            <= _SCRATCH_BUDGET
-    Mp = _round_up(max(M, tile_m), tile_m)
-    Np = _round_up(max(N, 128), 128)
-    # scratch (the cached-plane fast path) iff full unroll fits: its
-    # footprint (q*tile*Np planes + q b-side temporaries) matches the
-    # full-unroll budget of _plan_tiles
-    use_scratch = full_unroll and tile_m * Np * q <= _SCRATCH_BUDGET
-    Zp = jnp.zeros((Mp, Np), jnp.int8).at[:M, :N].set(Z.astype(jnp.int8))
-    th = jnp.asarray(thresh, jnp.float32).reshape(1, 1)
-
-    T = Mp // tile_m
-    J = T // 2 + 1 if T % 2 == 0 else (T + 1) // 2
-    grid = (T, J)
-    kernel = functools.partial(_row_stats_sym_kernel, q=q, n_valid=N, T=T)
-    row_spec = pl.BlockSpec((tile_m, 1), lambda i, jp: (i, 0),
-                            memory_space=pltpu.VMEM)
-    col_spec = pl.BlockSpec((tile_m, J), lambda i, jp: (i, 0),
-                            memory_space=pltpu.VMEM)
-    row_shape = jax.ShapeDtypeStruct((Mp, 1), jnp.float32)
-    col_shape = jax.ShapeDtypeStruct((Mp, J), jnp.float32)
-    rs_row, cnt_row, rs_col, cnt_col = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, jp: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_m, Np), lambda i, jp: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, Np), lambda i, jp: ((i + jp) % T, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(row_spec, row_spec, col_spec, col_spec),
-        out_shape=(row_shape, row_shape, col_shape, col_shape),
-        scratch_shapes=([pltpu.VMEM((tile_m, Np * q), jnp.int8)]
-                        if use_scratch else []),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Mp * (Mp // 2 + tile_m) * Np * q,
-            bytes_accessed=2 * T * J * tile_m * Np + 16 * Mp * J,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(th, Zp, Zp)
-
-    # Fold slot jp's column partials (tile (i, b=(i+jp)%T)) into block b.
-    b_idx = (jnp.arange(T)[:, None] + jnp.arange(J)[None, :]) % T  # [T, J]
-    seg = b_idx.reshape(-1)
-
-    def fold(row_part, col_part):
-        out = row_part.reshape(T, tile_m)
-        flat = col_part.reshape(T, tile_m, J).transpose(0, 2, 1)
-        out = out + jax.ops.segment_sum(
-            flat.reshape(T * J, tile_m), seg, num_segments=T)
-        return out.reshape(Mp)
-
-    rowsum = fold(rs_row, rs_col)
-    below = fold(cnt_row, cnt_col)
-    return rowsum[:M], below[:M]
-
-
-def _row_stats_sym_e8_kernel(thresh_ref, ea_ref, eb_ref,
-                             rs_row_ref, cnt_row_ref,
-                             rs_col_ref, cnt_col_ref, acc_ref,
-                             *, n_valid: int, T: int, nk: int):
-    """Grid cell (i, j', k): one K-slab of tile (i, b=(i+j') mod T).
-
-    Same circulant covering and output contract as
-    ``_row_stats_sym_kernel``, but the operands are precomputed one-hot
-    planes (E8) — a single int8 matmul per slab, no VPU expansion. The
-    match tile accumulates across the k axis in a VMEM scratch; row/col
-    reductions fire on the last slab.
-    """
-    i = pl.program_id(0)
-    jp = pl.program_id(1)
-    k = pl.program_id(2)
-
-    part = jax.lax.dot_general(
-        ea_ref[:], eb_ref[:], (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-        precision=jax.lax.Precision.DEFAULT)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = part
-
-    @pl.when(k != 0)
-    def _():
-        acc_ref[:] = acc_ref[:] + part
-
-    @pl.when(k == nk - 1)
-    def _():
-        tile = acc_ref[:].astype(jnp.float32)
-        thresh = thresh_ref[0, 0]
-        near = ((n_valid - tile) < thresh).astype(jnp.float32)
-        if T % 2 == 0:
-            live = jnp.where((jp != T // 2) | (i < T // 2), 1.0, 0.0)
-        else:
-            live = 1.0
-        rs = jnp.sum(tile, axis=1, keepdims=True) * live
-        cnt = jnp.sum(near, axis=1, keepdims=True) * live
-        col_live = live * jnp.where(jp == 0, 0.0, 1.0)
-        rs_c = jnp.sum(tile, axis=0)[:, None] * col_live
-        cnt_c = jnp.sum(near, axis=0)[:, None] * col_live
-        slot = jax.lax.broadcasted_iota(
-            jnp.int32, rs_col_ref.shape, 1) == jp
-
-        @pl.when(jp == 0)
-        def _():
-            rs_row_ref[:] = rs
-            cnt_row_ref[:] = cnt
-            rs_col_ref[:] = jnp.zeros_like(rs_col_ref)
-            cnt_col_ref[:] = jnp.zeros_like(cnt_col_ref)
-
-        @pl.when(jp != 0)
-        def _():
-            rs_row_ref[:] = rs_row_ref[:] + rs
-            cnt_row_ref[:] = cnt_row_ref[:] + cnt
-            rs_col_ref[:] = jnp.where(slot, rs_c, rs_col_ref[:])
-            cnt_col_ref[:] = jnp.where(slot, cnt_c, cnt_col_ref[:])
-
-
-@functools.partial(jax.jit, static_argnames=("q", "tile_m", "kblk",
-                                             "interpret"))
-def row_stats_sym_e8_pallas(Z: jax.Array, thresh: jax.Array, q: int = 21,
-                            *, tile_m: int = 512, kblk: int = 0,
-                            interpret: bool = False):
-    """Symmetry-halved row stats over a PRECOMPUTED one-hot plane matrix.
-
-    Same contract as ``row_stats_sym_pallas``. Trades M*N*q bytes of HBM
-    for zero in-kernel one-hot expansion: the kernel is a pure int8
-    matmul over K = N*q, K-blocked to fit VMEM. ``kblk=0`` auto-sizes to
-    128*q — K slabs stay lane-aligned AND whole multiples of the plane
-    period q for every alphabet (22..31 included), so slab boundaries
-    never split a position's q planes.
-
-    MEASURED SLOWER than the token-reading kernel and NOT dispatched by
-    default: at M=32768/N=384 it reaches 263 TF-equiv vs 336 — the
-    plane tiles are ~21x larger than token tiles, so the kernel is
-    DMA-bound (~35 GB per pass at the bench shape). Retained as a
-    tested alternative: it becomes interesting only if the VPU
-    expansion cost grows (much larger alphabets) or HBM bandwidth
-    outpaces the VPU in future hardware.
-    """
-    M, N = Z.shape
-    if kblk == 0:
-        kblk = 128 * q
-    Mp = _round_up(max(M, tile_m), tile_m)
-    Kp = _round_up(max(N * q, kblk), kblk)
-    # one-hot planes, position-major K = n*q + (c-1); token 0 -> all zero
-    states = jnp.arange(1, q + 1, dtype=jnp.int32)
-    E8 = (Z.astype(jnp.int32)[:, :, None] == states).astype(
-        jnp.int8).reshape(M, N * q)
-    E8 = jnp.zeros((Mp, Kp), jnp.int8).at[:M, :N * q].set(E8)
-    th = jnp.asarray(thresh, jnp.float32).reshape(1, 1)
-
-    T = Mp // tile_m
-    J = T // 2 + 1 if T % 2 == 0 else (T + 1) // 2
-    nk = Kp // kblk
-    grid = (T, J, nk)
-    kernel = functools.partial(_row_stats_sym_e8_kernel, n_valid=N, T=T,
-                               nk=nk)
-    row_spec = pl.BlockSpec((tile_m, 1), lambda i, jp, k: (i, 0))
-    col_spec = pl.BlockSpec((tile_m, J), lambda i, jp, k: (i, 0))
-    rs_row, cnt_row, rs_col, cnt_col = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, jp, k: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_m, kblk), lambda i, jp, k: (i, k)),
-            pl.BlockSpec((tile_m, kblk),
-                         lambda i, jp, k: ((i + jp) % T, k)),
-        ],
-        out_specs=(row_spec, row_spec, col_spec, col_spec),
-        out_shape=(jax.ShapeDtypeStruct((Mp, 1), jnp.float32),
-                   jax.ShapeDtypeStruct((Mp, 1), jnp.float32),
-                   jax.ShapeDtypeStruct((Mp, J), jnp.float32),
-                   jax.ShapeDtypeStruct((Mp, J), jnp.float32)),
-        scratch_shapes=[pltpu.VMEM((tile_m, tile_m), jnp.int32)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Mp * (Mp // 2 + tile_m) * N * q,
-            bytes_accessed=T * J * nk * 2 * tile_m * kblk + 16 * Mp * J,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(th, E8, E8)
-
-    b_idx = (jnp.arange(T)[:, None] + jnp.arange(J)[None, :]) % T
-    seg = b_idx.reshape(-1)
-
-    def fold(row_part, col_part):
-        out = row_part.reshape(T, tile_m)
-        flat = col_part.reshape(T, tile_m, J).transpose(0, 2, 1)
-        out = out + jax.ops.segment_sum(
-            flat.reshape(T * J, tile_m), seg, num_segments=T)
-        return out.reshape(Mp)
-
-    return fold(rs_row, rs_col)[:M], fold(cnt_row, cnt_col)[:M]
-
-
-def _row_stats_asym_kernel(thresh_ref, za_ref, zb_ref,
-                           rs_row_ref, cnt_row_ref,
-                           rs_col_ref, cnt_col_ref, ea_ref,
-                           *, q: int, n_valid: int, T: int, k: int,
-                           tile_b: int):
-    """Grid cell (g, jp): A = row-block GROUP g (k fine blocks of tile_b
-    rows, one-hot planes cached in scratch at jp == 0), B = fine block
-    beta = (g*k + jp) mod T, streamed and expanded on the fly.
-
-    The kernel is expansion-bound: per B plane the VPU compares
-    tile_b*Np tokens to feed k*tile_b*tile_b*Np MXU MACs, so the
-    expansion-to-MAC ratio is 1/(k*tile_b) — k times lower than the
-    square kernel's 1/tile. Fine sub-block r of the group covers tile
-    (alpha = g*k + r, beta) at circulant offset d = (jp - r) mod T; the
-    sub-block is live iff d is the pair's representative offset (d <=
-    T//2, with the even-T d == T/2 tie broken by alpha < T/2, and d == 0
-    the diagonal tile: row reduction counts both directions, column
-    partial zeroed). jp runs k - 1 slots past the square kernel's J so
-    every sub-row sees its full offset window; the <= k-1 dead sub-tiles
-    per cell are masked (a (k-1)/J overhead).
-    """
-    g = pl.program_id(0)
-    jp = pl.program_id(1)
-
-    @pl.when(jp == 0)
-    def _():
-        za = za_ref[:].astype(jnp.int32)
-        Np = za.shape[1]
-        for c in range(1, q + 1):
-            ea_ref[:, (c - 1) * Np:c * Np] = (za == c).astype(jnp.int8)
-
-    tile = _match_tile_cached(ea_ref, zb_ref[:], q).astype(jnp.float32)
-    thresh = thresh_ref[0, 0]
-    near = ((n_valid - tile) < thresh).astype(jnp.float32)
-
-    rows = jax.lax.broadcasted_iota(jnp.int32, (k * tile_b, 1), 0)
-    sub = rows // tile_b                       # fine sub-block r per row
-    alpha = g * k + sub                        # global fine block per row
-    d = (jp - sub) % T
-    if T % 2 == 0:
-        live = (d <= T // 2) & ((d != T // 2) | (alpha < T // 2))
-    else:
-        live = d <= (T - 1) // 2
-    live = live.astype(jnp.float32)            # [k*tile_b, 1]
-    col_live = live * jnp.where(d == 0, 0.0, 1.0)
-
-    rs = jnp.sum(tile * live, axis=1, keepdims=True)     # [k*tile_b, 1]
-    cnt = jnp.sum(near * live, axis=1, keepdims=True)
-    rs_c = jnp.sum(tile * col_live, axis=0)[:, None]     # [tile_b, 1]
-    cnt_c = jnp.sum(near * col_live, axis=0)[:, None]
-
-    slot = jax.lax.broadcasted_iota(jnp.int32, rs_col_ref.shape, 1) == jp
-
-    @pl.when(jp == 0)
-    def _():
-        rs_row_ref[:] = rs
-        cnt_row_ref[:] = cnt
-        rs_col_ref[:] = jnp.where(slot, rs_c, jnp.zeros_like(rs_col_ref))
-        cnt_col_ref[:] = jnp.where(slot, cnt_c,
-                                   jnp.zeros_like(cnt_col_ref))
-
-    @pl.when(jp != 0)
-    def _():
-        rs_row_ref[:] = rs_row_ref[:] + rs
-        cnt_row_ref[:] = cnt_row_ref[:] + cnt
-        rs_col_ref[:] = jnp.where(slot, rs_c, rs_col_ref[:])
-        cnt_col_ref[:] = jnp.where(slot, cnt_c, cnt_col_ref[:])
-
-
-_ASYM_VMEM_BUDGET = int(13.5 * 2 ** 20)
-
-
-def _asym_vmem(tile_b: int, k: int, Np: int, q: int) -> int:
-    """Scoped-VMEM bytes live per asym-kernel cell.
-
-    A-plane scratch k*t*Np*q i8, B one-hot temporaries ~(q + 4)*t*Np
-    (only B expands per cell), i32 accumulator k*t*t, token tiles
-    (k + 1)*t*Np i8."""
-    return (k * tile_b * Np * q                    # scratch planes
-            + (q + 4) * tile_b * Np                # B-side temporaries
-            + 4 * k * tile_b * tile_b              # accumulator
-            + (k + 1) * tile_b * Np)               # token tiles
-
-
-def _plan_asym(N: int, q: int, tile_b: int = 0, k: int = 0):
-    """(tile_b, k) for the asym kernel under the 16 MB scoped-VMEM limit.
-
-    An explicit ``tile_b`` or ``k`` (non-zero) is HONORED: only the
-    missing parameter is planned (so an A/B sweep over k really varies
-    k — replanning both would silently measure the auto plan three
-    times). Budgeted to ~13.5 MB; auto candidates in decreasing k*t
-    (the expansion divisor)."""
-    Np = _round_up(max(N, 128), 128)
-    if tile_b and k:
-        return tile_b, k
-    if k:      # explicit k: largest tile that fits the budget
-        for t in (512, 384, 256, 128):
-            if _asym_vmem(t, k, Np, q) <= _ASYM_VMEM_BUDGET:
-                return t, k
-        return 0, k
-    if tile_b:  # explicit tile: largest group size that fits
-        for kk in (4, 3, 2):
-            if _asym_vmem(tile_b, kk, Np, q) <= _ASYM_VMEM_BUDGET:
-                return tile_b, kk
-        return tile_b, 1
-    # auto: at Np <= 256 (deep-MSA widths) the larger groups fit, at
-    # Np = 512 (N in 385..512, the golden-large class) -> (256, 3)
-    for tb, kk in ((384, 3), (512, 2), (256, 3), (256, 2),
-                   (128, 3), (128, 2)):
-        if _asym_vmem(tb, kk, Np, q) <= _ASYM_VMEM_BUDGET:
-            return tb, kk
-    return 0, 1
-
-
-@functools.partial(jax.jit, static_argnames=("q", "tile_b", "k",
-                                             "interpret"))
-def row_stats_asym_pallas(Z: jax.Array, thresh: jax.Array, q: int = 21, *,
-                          tile_b: int = 0, k: int = 0,
-                          interpret: bool = False):
-    """Asymmetric-tile ``row_stats_sym_pallas``: same contract.
-
-    A-side tiles are k fine blocks tall with their one-hot planes cached
-    in VMEM scratch (amortized over the inner jp loop), B-side tiles
-    stay one block and expand per cell — per-MAC VPU expansion drops
-    from 1/tile to 1/(k*tile). ``tile_b=0``/``k=0`` auto-plans;
-    shapes where the grouped covering cannot work (k would exceed
-    T - T//2, or no plan fits VMEM) fall back to the square kernel.
-    """
-    M, N = Z.shape
-    if tile_b == 0 or k == 0:
-        tile_b, k = _plan_asym(N, q, tile_b=tile_b, k=k)
-    if k < 2 or tile_b == 0:
-        return row_stats_sym_pallas(Z, thresh, q, interpret=interpret)
-    Mp = _round_up(max(M, k * tile_b), k * tile_b)
-    T = Mp // tile_b
-    Dmax = T // 2 if T % 2 == 0 else (T - 1) // 2
-    if Dmax + k > T:          # offset windows would wrap: double cover
-        return row_stats_sym_pallas(Z, thresh, q, interpret=interpret)
-    Np = _round_up(max(N, 128), 128)
-    Zp = jnp.zeros((Mp, Np), jnp.int8).at[:M, :N].set(Z.astype(jnp.int8))
-    th = jnp.asarray(thresh, jnp.float32).reshape(1, 1)
-
-    G = Mp // (k * tile_b)
-    J = Dmax + k
-    grid = (G, J)
-    kernel = functools.partial(_row_stats_asym_kernel, q=q, n_valid=N,
-                               T=T, k=k, tile_b=tile_b)
-    row_spec = pl.BlockSpec((k * tile_b, 1), lambda g, jp: (g, 0),
-                            memory_space=pltpu.VMEM)
-    col_spec = pl.BlockSpec((tile_b, J), lambda g, jp: (g, 0),
-                            memory_space=pltpu.VMEM)
-    rs_row, cnt_row, rs_col, cnt_col = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda g, jp: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((k * tile_b, Np), lambda g, jp: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_b, Np), lambda g, jp: ((g * k + jp) % T, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(row_spec, row_spec, col_spec, col_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((Mp, 1), jnp.float32),
-            jax.ShapeDtypeStruct((Mp, 1), jnp.float32),
-            jax.ShapeDtypeStruct((G * tile_b, J), jnp.float32),
-            jax.ShapeDtypeStruct((G * tile_b, J), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.VMEM((k * tile_b, Np * q), jnp.int8)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Mp * (Mp // 2 + k * tile_b) * Np * q,
-            bytes_accessed=(G * J + G * k) * tile_b * Np + 16 * Mp * J,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(th, Zp, Zp)
-
-    # Fold slot (g, jp)'s column partials into fine block (g*k + jp) % T.
-    b_idx = (k * jnp.arange(G)[:, None] + jnp.arange(J)[None, :]) % T
-    seg = b_idx.reshape(-1)
-
-    def fold(row_part, col_part):
-        out = row_part.reshape(T, tile_b)
-        flat = col_part.reshape(G, tile_b, J).transpose(0, 2, 1)
-        out = out + jax.ops.segment_sum(
-            flat.reshape(G * J, tile_b), seg, num_segments=T)
-        return out.reshape(Mp)
-
-    rowsum = fold(rs_row, rs_col)
-    below = fold(cnt_row, cnt_col)
-    return rowsum[:M], below[:M]
-
-
-@functools.partial(jax.jit, static_argnames=("q", "tile_m", "interpret"))
-def row_stats_rect_pallas(ZA: jax.Array, ZB: jax.Array, thresh: jax.Array,
-                          q: int = 21, *, tile_m: int = 0,
-                          interpret: bool = False):
-    """Row stats of A's rows against ALL of B's rows (rectangular grid).
-
-    The shard_map building block for data-parallel reweighting: each
-    device holds its own row block A and the (small) full token matrix B,
-    and computes ``rowsum[a] = sum_b matches(a, b)`` and
-    ``below[a] = #{b : hamming(a, b) < thresh}`` for its rows only —
-    O(M_local) output, no cross-device match matrix, no communication.
+def _onehot_i8(Z: jax.Array, q: int) -> jax.Array:
+    """[M, N] tokens -> [M, N*q] int8 one-hot (token 0 -> all zero)."""
+    states = jnp.arange(1, q + 1, dtype=jnp.int8)
+    E = Z.astype(jnp.int8)[:, :, None] == states
+    return E.astype(jnp.int8).reshape(Z.shape[0], -1)
+
+
+def plan_block_rows(Ma: int, Mb: int) -> int:
+    """Row block of ``row_stats_xla``: the [block, Mb] int32 product
+    stays under ``_BLOCK_PRODUCT_BYTES``, and the blocks split Ma evenly
+    (no near-empty tail block), ``_ROW_ALIGN``-aligned."""
+    cap = max(_ROW_ALIGN, _BLOCK_PRODUCT_BYTES // (4 * max(Mb, 1))
+              // _ROW_ALIGN * _ROW_ALIGN)
+    n_blocks = -(-Ma // cap)
+    return _round_up(-(-Ma // n_blocks), _ROW_ALIGN)
+
+
+@functools.partial(jax.jit, static_argnames=("q", "block_rows"))
+def row_stats_xla(ZA: jax.Array, ZB: jax.Array, thresh: jax.Array,
+                  q: int = 21, *, block_rows: int = 0):
+    """Row stats of A's rows against all of B's rows, O(Ma) output.
+
+    Returns ``(rowsum [Ma] int32, below [Ma] int32)``:
+    ``rowsum[a] = sum_b matches(a, b)`` and
+    ``below[a] = #{b : N - matches(a, b) < thresh}`` (self included when
+    A and B share rows and thresh > 0). The square statistics of one
+    token matrix are ``row_stats_xla(Z, Z, ...)``; the mesh path calls it
+    with a device's row block as A and the full matrix as B.
     """
     Ma, N = ZA.shape
     Mb, Nb = ZB.shape
-    assert N == Nb
-    unroll = True
-    if tile_m == 0:
-        tile_m, unroll = _plan_tiles(N, q)
-    Map = _round_up(max(Ma, tile_m), tile_m)
-    Mbp = _round_up(max(Mb, tile_m), tile_m)
-    Np = _round_up(max(N, 128), 128)
-    ZAp = jnp.zeros((Map, Np), jnp.int8).at[:Ma, :N].set(ZA.astype(jnp.int8))
-    ZBp = jnp.zeros((Mbp, Np), jnp.int8).at[:Mb, :N].set(ZB.astype(jnp.int8))
-    th = jnp.asarray(thresh, jnp.float32).reshape(1, 1)
+    assert N == Nb, (N, Nb)
+    if block_rows == 0:
+        block_rows = plan_block_rows(Ma, Mb)
+    # padding tokens (0) match nothing: the hamming distances keep the
+    # true width N
+    kpad = (-N) % _K_ALIGN
+    ZA = jnp.pad(ZA, ((0, (-Ma) % block_rows), (0, kpad)))
+    EB = _onehot_i8(jnp.pad(ZB, ((0, 0), (0, kpad))), q)
+    th = jnp.asarray(thresh, jnp.float32)
 
-    grid = (Map // tile_m, Mbp // tile_m)
-    kernel = functools.partial(_row_stats_kernel, q=q, n_valid=N,
-                               unroll=unroll)
-    rowsum, below = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_m, Np), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, Np), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((tile_m, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((Map, 1), jnp.float32),
-            jax.ShapeDtypeStruct((Map, 1), jnp.float32),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Map * Mbp * Np * q,
-            bytes_accessed=(Map + Mbp) * Np + 8 * Map,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(th, ZAp, ZBp)
-    return rowsum[:Ma, 0], below[:Ma, 0]
+    def one_block(za):
+        # precision pinned to DEFAULT: integer products are exact at any
+        # precision, and the pipeline's ambient "highest" context must
+        # not reach an s8 GEMM
+        d = jax.lax.dot_general(
+            _onehot_i8(za, q), EB, (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32,
+            precision=jax.lax.Precision.DEFAULT)
+        near = (N - d).astype(jnp.float32) < th
+        return (jnp.sum(d, axis=1, dtype=jnp.int32),
+                jnp.sum(near, axis=1, dtype=jnp.int32))
+
+    rs, below = jax.lax.map(one_block,
+                            ZA.reshape(-1, block_rows, N + kpad))
+    return rs.reshape(-1)[:Ma], below.reshape(-1)[:Ma]
 
 
 def row_stats_rect_jnp(ZA: jax.Array, ZB: jax.Array, thresh: jax.Array,
                        q: int = 21, *, row_chunk: int = 256):
-    """Pure-jnp twin of ``row_stats_rect_pallas`` (CPU tests / dryrun).
+    """Broadcast-compare reference of ``row_stats_xla`` (same contract).
 
     One-hot semantics: token 0 (padding) matches nothing, including
-    itself — exactly like the kernels.
+    itself — exactly like the GEMM formulation.
     """
+    del q  # the comparison needs no alphabet size
     Ma, N = ZA.shape
     pad = (-Ma) % row_chunk
     ZAp = jnp.pad(ZA, ((0, pad), (0, 0)))
@@ -790,54 +127,10 @@ def row_stats_rect_jnp(ZA: jax.Array, ZB: jax.Array, thresh: jax.Array,
 
     def one_block(za):
         eq = (za[:, None, :] == ZB[None, :, :]) & (za[:, None, :] > 0)
-        d = jnp.sum(eq, axis=-1, dtype=jnp.float32)
-        rs = jnp.sum(d, axis=1)
-        below = jnp.sum((N - d) < th, axis=1, dtype=jnp.float32)
-        return rs, below
+        d = jnp.sum(eq, axis=-1, dtype=jnp.int32)
+        below = jnp.sum((N - d).astype(jnp.float32) < th, axis=1,
+                        dtype=jnp.int32)
+        return jnp.sum(d, axis=1, dtype=jnp.int32), below
 
     rs, below = jax.lax.map(one_block, blocks)
     return rs.reshape(-1)[:Ma], below.reshape(-1)[:Ma]
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("q", "tile_m", "interpret"))
-def match_counts_pallas(Z: jax.Array, q: int = 21, *, tile_m: int = 0,
-                        interpret: bool = False) -> jax.Array:
-    """[M, M] identity counts via the tiled Pallas kernel.
-
-    ``tile_m=0`` auto-plans (tile, unroll) against the scoped-VMEM
-    budget (``_plan_tiles``) — a fixed wide tile under full unroll
-    blows the 16 MB limit once the one-hot temporaries reach
-    ~(2q+8)*tile*Np bytes (Np >= ~1408 at q=21, tile=256). An explicit
-    ``tile_m`` keeps full unroll (caller's choice, e.g. tests pinning a
-    grid parity).
-    """
-    M, N = Z.shape
-    unroll = True
-    if tile_m == 0:
-        tile_m, unroll = _plan_tiles(N, q)
-    Mp = _round_up(max(M, tile_m), tile_m)
-    Np = _round_up(max(N, 128), 128)
-    Zp = jnp.zeros((Mp, Np), jnp.int8).at[:M, :N].set(Z.astype(jnp.int8))
-
-    grid = (Mp // tile_m, Mp // tile_m)
-    out = pl.pallas_call(
-        functools.partial(_match_kernel, q=q, unroll=unroll),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile_m, Np), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_m, Np), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_m, tile_m), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Mp, Mp), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Mp * Mp * Np * q,
-            bytes_accessed=2 * Mp * Np + 4 * Mp * Mp,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(Zp, Zp)
-    return out[:M, :M]

@@ -11,7 +11,8 @@ The reference's only parallelism is shared-memory Julia threading
 
 Collectives are never written by hand: shardings are declared via
 NamedSharding / sharding constraints under jit and GSPMD inserts
-all-gathers/reduce-scatters over ICI.
+all-gathers/reduce-scatters (NCCL over NVLink between the cards of
+one host).
 """
 
 from __future__ import annotations
@@ -75,10 +76,11 @@ def init_distributed(coordinator: Optional[str] = None,
 
     Call once per host before building a mesh; afterwards
     ``jax.devices()`` spans the pod slice and the (data, model) mesh laid
-    over it rides ICI within a host and DCN across hosts. Arguments fall
+    over it rides NVLink/NCCL within a host and the network across hosts.
+    Arguments fall
     back to the ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
     ``JAX_PROCESS_ID`` env vars, then to ``jax.distributed.initialize``'s
-    own cluster auto-detection (TPU pod metadata, SLURM, ...).
+    own cluster auto-detection (SLURM, ...).
 
     ``force=True`` (what the CLI's ``--distributed`` passes) initializes
     unconditionally and lets ``jax.distributed.initialize`` fail loudly

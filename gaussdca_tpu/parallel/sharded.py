@@ -1,13 +1,13 @@
-"""Multi-chip sharded gDCA pipeline (shard_map + GSPMD).
+"""Multi-card sharded gDCA pipeline (shard_map + GSPMD).
 
 Scale-out design (new — the reference is single-process, SURVEY.md 2.9):
 
 - sequences (M) are DATA-parallel across ALL mesh devices for the O(M^2)
   reweighting stage: each device holds its row block plus the full token
   matrix (tokens are int8 and tiny — 40 MB at M=1e5) and computes its
-  rows' match-sum / neighbor-count via the tiled Pallas kernel. Output
-  is O(M_local) per device; the M x M match matrix NEVER exists,
-  matching the single-chip streaming path, so 1e5+-sequence MSAs shard
+  rows' match-sum / neighbor-count with the rectangular row statistics
+  of ops/. Output is O(M_local) per device; the M x M match matrix
+  NEVER exists, matching the single-card streaming path, so 1e5+-sequence MSAs shard
   cleanly (a dense D would be 40 GB at M=1e5),
 - weighted frequencies are partial-summed per device from local rows
   (chunked one-hot matmuls) and merged with one psum,
@@ -24,7 +24,7 @@ Scale-out design (new — the reference is single-process, SURVEY.md 2.9):
   pair slab, zero communication.
 
 shard_map is used where the per-device program is the point (local
-Pallas kernels, partial sums, pair slabs); plain sharding constraints +
+row statistics, partial sums, pair slabs); plain sharding constraints +
 GSPMD everywhere else.
 
 ``m_true`` / ``n_true`` are TRACED scalars (the unpadded sequence /
@@ -60,12 +60,13 @@ def _constrain(x, spec):
     return jax.lax.with_sharding_constraint(x, spec)
 
 
-def _row_stats_local(q: int, use_pallas: bool):
-    """Per-device body: row stats of the local row block vs all rows."""
+def _row_stats_local(q: int, fast: bool):
+    """Per-device body: row stats of the local row block vs all rows
+    (int8 one-hot GEMMs when ``fast``, the broadcast-compare reference
+    otherwise)."""
     def body(Z_local, Z_full, thresh):
-        if use_pallas:
-            return distance.row_stats_rect_pallas(Z_local, Z_full,
-                                                  thresh, q)
+        if fast:
+            return distance.row_stats_xla(Z_local, Z_full, thresh, q)
         return distance.row_stats_rect_jnp(Z_local, Z_full, thresh, q)
     return body
 
@@ -95,10 +96,9 @@ def _di_sharded(mesh: Mesh, mJ, C, q: int, *, use_pallas: bool = False,
     reuse index (0, 0); their integrals are computed (1/ndev overhead at
     most) and discarded.
 
-    Large f32 batches gather straight into batch-MINOR layout
-    ([s, s, P], pairs on the lane axis — batch-major [P, s, s] f32
-    carries a 7.7x (8, 128)-tiling padding tax on TPU) and run the
-    batch-minor core per device (score/di._di_pairs_bm_minor).
+    Where the platform picks the batch-minor core, large f32 batches
+    gather straight into batch-MINOR layout ([s, s, P], pairs on the
+    minor axis) and run it per device (score/di._di_pairs_bm_minor).
 
     Kernel-family gate: the batch-minor core engages on the PER-DEVICE
     slab size (Pp // ndev >= _BM_MIN_PAIRS) — small per-device
@@ -110,8 +110,6 @@ def _di_sharded(mesh: Mesh, mJ, C, q: int, *, use_pallas: bool = False,
     single-chip scores then differ only by floating-point summation
     order (tests compare with tolerances for exactly this reason).
     """
-    import os
-
     from gaussdca_tpu.score.di import (_BM_MIN_PAIRS, _di_pairs_bm_minor,
                                        di_pairs_bm_gathered)
 
@@ -128,13 +126,9 @@ def _di_sharded(mesh: Mesh, mJ, C, q: int, *, use_pallas: bool = False,
     ju_p = np.concatenate([ju, np.zeros(Pp - Pn, ju.dtype)])
 
     dev_axes = (DATA_AXIS, MODEL_AXIS)
-    # same gate as di_score, including the GDCA_DI_FUSED opt-out (so
-    # the env knob selects the same kernel family on every dispatch
-    # path — it is folded into the CLI artifact cache key)
+    # same gate as di_score, on the per-device slab
     bm = (use_pallas and mJ.dtype == jnp.float32
-          and Pp // ndev >= _BM_MIN_PAIRS
-          and os.environ.get("GDCA_DI_FUSED", "").lower()
-          not in ("1", "true", "yes"))
+          and Pp // ndev >= _BM_MIN_PAIRS)
     if bm:
         # the shared chunked minor-layout gather (score/di.py), with
         # each chunk's per-device slab balanced and ndev-aligned; the
@@ -227,8 +221,6 @@ def _di_sharded_local(mesh: Mesh, mJ, C, q: int, *,
 
     The site Cholesky factors [N, s, s] are tiny and replicated.
     """
-    import os
-
     from gaussdca_tpu.score.di import (_BM_MIN_PAIRS, _di_pairs_bm_minor,
                                        di_pairs_flat)
     from gaussdca_tpu.utils.chunked import balanced_chunk
@@ -242,20 +234,16 @@ def _di_sharded_local(mesh: Mesh, mJ, C, q: int, *,
 
     Lsite = site_cholesky(C, q)                          # [N, s, s] tiny
 
-    bm = (use_pallas and mJ.dtype == jnp.float32
-          and pmax >= _BM_MIN_PAIRS
-          and os.environ.get("GDCA_DI_FUSED", "").lower()
-          not in ("1", "true", "yes"))
+    bm = use_pallas and mJ.dtype == jnp.float32 and pmax >= _BM_MIN_PAIRS
     chunk = (pmax if pmax <= pair_chunk
              else balanced_chunk(pmax, pair_chunk, align=128))
     idx_specs = (P(dev_axes),) * 3
 
     if bm:
-        # the coupling stays FLAT, row-sharded: on this toolchain the
-        # [N, s, N, s] reshape does NOT fuse into its consumers — it
-        # materializes with s on the 128-lane axis, a 128/s padding
-        # expansion (25.6 GB at q=9, N=2500; round-4 battery OOM).
-        # Each pair's s x s block is one slice of a vmapped
+        # the coupling stays FLAT, row-sharded (an [N, s, N, s] view
+        # need not fuse into its consumers and may materialize with the
+        # small s-sized dim minor). Each pair's s x s block is one
+        # slice of a vmapped
         # dynamic_slice (a single XLA gather with (s, s) slice sizes),
         # transposed to the batch-minor layout per chunk.
         J2 = mJ
@@ -378,13 +366,11 @@ def _di_sharded_tiled(mesh: Mesh, mJ, C, q: int, *,
     slot maps) — no per-lane indexing anywhere.
 
     Engages only when every tile carries a bm-scale lane batch
-    (``ceil(N/ndev) >= tile_target`` — below that the per-step batches
-    hit the measured small-batch pathology; callers gate and fall back
-    to ``_di_sharded_local``). Flop overhead vs the gathered path:
+    (``ceil(N/ndev) >= tile_target``; callers gate and fall back to
+    ``_di_sharded_local``). Flop overhead vs the gathered path:
     diagonal tiles compute their discarded i >= j lanes (~RB/N) plus
-    O(RB) position padding — the same trade the single-chip tiled
-    default made. Chip timing pending: ``scripts/tpu_ab.py di-sharded``
-    (1x1-mesh proxy); keep opt-in until measured.
+    O(RB) position padding — the same trade the single-card mapped
+    formulation makes. Opt-in; not yet timed on the card.
     """
     from gaussdca_tpu.score.di import (_BM_MIN_PAIRS, _di_pairs_bm_minor,
                                        _finish_upper_blocks,
@@ -403,11 +389,8 @@ def _di_sharded_tiled(mesh: Mesh, mJ, C, q: int, *,
 
     Lsite = site_cholesky(C, q)
     # the coupling stays FLAT [Npd*s, Npd*s], row-sharded; tiles
-    # reshape/transpose inside the body — materializing the [s, s,
-    # Npd, Npd] transposed view (or a padded [.., s]-minor form) across
-    # the shard_map/lax.map boundary pads s up to the 128-lane axis
-    # (128/s = 6.4x at q=21; measured 19.6 GB OOM on the single-chip
-    # mapped twin, round-4 battery)
+    # reshape/transpose inside the body, so no full-size [s, s, Npd,
+    # Npd] transposed copy crosses the shard_map/lax.map boundary
     J2 = mJ
     if Npd != N:
         pad = Npd - N
@@ -497,18 +480,19 @@ def sharded_scores_fn(mesh: Mesh, *, q: int, score: str,
     the replicated one.
     """
     if use_pallas is None:
-        from gaussdca_tpu.ops.dispatch import _on_tpu
-        use_pallas = _on_tpu()
+        from gaussdca_tpu.ops import dispatch
+        form = dispatch.formulation()
+        fast_rows, di_bm = form.streaming_row_stats, form.di_batch_minor
+    else:
+        fast_rows = di_bm = bool(use_pallas)
 
     dev_axes = (DATA_AXIS, MODEL_AXIS)
     rows_all = NamedSharding(mesh, P(dev_axes, None))
     model2 = NamedSharding(mesh, P(MODEL_AXIS, None))
     repl = NamedSharding(mesh, P())
 
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axes
-    # annotation, which the default shard_map checker rejects
     row_stats = shard_map(
-        _row_stats_local(q, use_pallas), mesh=mesh,
+        _row_stats_local(q, fast_rows), mesh=mesh,
         in_specs=(P(dev_axes, None), P(), P()),
         out_specs=(P(dev_axes), P(dev_axes)), check_vma=False)
 
@@ -559,16 +543,16 @@ def sharded_scores_fn(mesh: Mesh, *, q: int, score: str,
         if score == "DI":
             if storage_sharded:
                 if _di_sharded_tiled_ok(N, mesh.devices.size, dtype,
-                                        use_pallas):
+                                        di_bm):
                     # opt-in zero-gather variant (GDCA_DI_SHARDED=tiled,
                     # read at TRACE time like the other kernel knobs)
                     S = _di_sharded_tiled(mesh, mJ, Cuse, q)
                 else:
                     # local-gather DI: mJ row-sharded and stays that way
                     S = _di_sharded_local(mesh, mJ, Cuse, q,
-                                          use_pallas=use_pallas)
+                                          use_pallas=di_bm)
             else:
-                S = _di_sharded(mesh, mJ, Cuse, q, use_pallas=use_pallas)
+                S = _di_sharded(mesh, mJ, Cuse, q, use_pallas=di_bm)
         else:
             J4 = _constrain(
                 mJ.reshape(N, s, N, s),

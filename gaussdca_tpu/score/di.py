@@ -20,10 +20,8 @@ Closed form (derived from the coupled fixed point
 (`rho rho^T` is similar to ``C_ii J C_jj J^T`` — same spectrum as the
 symmetric-sqrt sandwich, but Cholesky is direct and robust).
 
-TPU-native realization — no eigendecomposition (TPU has no native eigh,
-and XLA's iterative f64 eigh proved non-robust on exactly these
-degenerate spectra), and no batched tiny Cholesky in the hot loop (XLA's
-[P, s, s] cholesky is ~30x slower than the equivalent matmuls on TPU):
+Realization — no eigendecomposition (XLA's iterative f64 eigh proved
+non-robust on exactly these degenerate spectra):
 
 1. all P = N(N-1)/2 pairs are processed as one flat batch (chunked by
    ``pair_chunk`` via lax.map to bound memory at O(chunk * s^2)),
@@ -93,15 +91,11 @@ def sqrtm_spd_fixed(A: jax.Array,
                     iters: int = FALLBACK_NS_ITERS) -> jax.Array:
     """``sqrtm_spd`` with a FIXED, unrolled iteration count (f32 path).
 
-    The while_loop variant syncs its convergence scalar with the host
-    runtime every iteration — measured on this stack, each sync is a
-    ~25 ms round trip, and on slow-converging spectra the loop's 40
-    iterations take minutes. Trace-scaled NS converges in ~8 iterations
-    on golden-scale data (measured); the default 28 covers cond(G) up
-    to ~8e6 (NS needs ~log2(cond) + 5 steps; extra post-convergence
-    iterations are identity steps) — this path runs only on SMALL pair
-    batches where the extra matmuls are negligible. Unrolled, no
-    data-dependent control flow.
+    The while_loop variant reads its convergence scalar back every
+    iteration; this one has no data-dependent control flow. Trace-scaled
+    NS converges in ~8 iterations on golden-scale data; the default 28
+    covers cond(G) up to ~8e6 (NS needs ~log2(cond) + 5 steps; extra
+    post-convergence iterations are identity steps).
     """
     s = A.shape[-1]
     dtype = A.dtype
@@ -127,11 +121,9 @@ def site_cholesky(C: jax.Array, q: int) -> jax.Array:
     """Cholesky factor of every diagonal site block C_ii: [N, s, s].
 
     The site blocks are gathered from a [N, s, Ns] major-dim split of C
-    (layout-free view), NOT from the [N, s, N, s] reshape: on TPU the
-    4-D view puts the s-sized dim on the 128-lane axis, and when XLA
-    materializes it (it does for the diagonal einsum) the buffer pays a
-    128/s padding expansion — 16x = 25.6 GB at q=9, N=2500 (round-4
-    battery OOM)."""
+    (layout-free view), NOT from the [N, s, N, s] reshape, which XLA
+    may materialize for the diagonal einsum with the small s-sized dim
+    minor."""
     s = q - 1
     Ns = C.shape[0]
     N = Ns // s
@@ -142,41 +134,15 @@ def site_cholesky(C: jax.Array, q: int) -> jax.Array:
     return jnp.linalg.cholesky(Cii)
 
 
-def _sqrtm_fused(G: jax.Array, refine_steps: int = 2) -> jax.Array:
-    """sqrt(G) via the fused Pallas NS kernel (ops/di_kernel.py).
-
-    The kernel runs a FIXED number of HIGHEST-precision iterations (the
-    jnp ``sqrtm_spd`` fallback instead monitors convergence, up to 40);
-    ``refine_steps`` extra coupled NS steps outside the kernel are
-    convergence insurance for ill-conditioned blocks that need more than
-    the in-kernel budget. Validated against the golden DI files
-    (max abs err 9.6e-5, identical to the fallback path).
-    """
-    from gaussdca_tpu.ops.di_kernel import ns_sqrtm_pallas
-
-    s = G.shape[-1]
-    Y, Z, c = ns_sqrtm_pallas(G)
-    eye = _batch_eye(s, G.shape[:-2], G.dtype)
-    p = jax.lax.Precision.HIGHEST
-    for _ in range(refine_steps):
-        T = 1.5 * eye - 0.5 * jnp.einsum("pij,pjk->pik", Z, Y, precision=p)
-        Y = jnp.einsum("pij,pjk->pik", Y, T, precision=p)
-        Z = jnp.einsum("pij,pjk->pik", T, Z, precision=p)
-    return Y * jnp.sqrt(c.astype(G.dtype))
-
-
 def _bm_matmul(A: jax.Array, B: jax.Array) -> jax.Array:
     """Batch-minor product C[i,k,:] = sum_j A[i,j,:] * B[j,k,:].
 
     A, B: [s, s, P] with the pair batch on the MINOR (lane) axis. The j
     contraction is an unrolled add TREE of broadcasts — XLA fuses it
     into one elementwise kernel over [s, s, P], turning each tiny s x s
-    matmul into full-width vector FMAs in exact f32. Measured on-chip
-    vs the alternatives at s=20, P=8e4: tree 29 ms/op-dispatch,
-    batched-gemm einsum path ~0.2 TF/s, and lax.fori_loop with an
-    [s, s, P] carry a catastrophic 269 s (per-iteration HBM round-trips
-    + loop machinery — the same pathology the old while_loop sqrtm hit
-    on some inputs). Do NOT rewrite this as a loop.
+    matmul into full-width vector FMAs in exact f32. A lax.fori_loop
+    with an [s, s, P] carry would round-trip the carry through device
+    memory every step instead.
     """
     s = A.shape[1]
     acc = A[:, 0, :][:, None, :] * B[0, :, :][None, :, :]
@@ -185,18 +151,18 @@ def _bm_matmul(A: jax.Array, B: jax.Array) -> jax.Array:
     return acc
 
 
-# Fixed Newton-Schulz iteration count of the production batch-minor
-# core. utils/flops.py derives the per-family TFLOP accounting from
-# ``bm_ns_iters()`` below — change it HERE only (round-3 verdict: a
-# drifted copy in flops.py made every DI TFLOP/s log systematically
-# wrong). Round-5 chip battery: 14 iterations measured 2.021 s vs
-# 2.200 s at N=1000 e2e (+8.1%; 16 iters +5.5%) with golden parity
-# re-gated under 14 (chip_sessions/tpu_session_r5). Margin: with the
-# min(trace, inf-norm) initial scaling the count covers cond(G) up to
-# ~2.25^(iters-6) ~= 660 at 14 (vs 8e4 at the old 20); G = I + 4
-# rho rho^T >= I bounds cond(G) = lambda_max(G), and golden-scale MSA
-# data converges by ~8 iterations — 14 keeps ~6 quadratic-phase
-# iterations of headroom. GDCA_DI_NS_ITERS=20 restores the old count.
+# Fixed Newton-Schulz iteration count of the batch-minor core.
+# utils/flops.py derives the per-family FLOP accounting from
+# ``bm_ns_iters()`` below — change it HERE only (a drifted copy in
+# flops.py once made every DI FLOP/s log wrong). Golden gate on the
+# H100 (f32, shipped defaults, the large DI config on the batch-minor
+# core): max abs error 7.72e-4 against the 1e-3 tolerance with 100%
+# top-10/top-100 overlap, identical at 14 and at 20 iterations. Margin:
+# with the min(trace, inf-norm) initial scaling the count covers cond(G)
+# up to ~2.25^(iters-6) ~= 660 at 14 (vs 8e4 at 20); G = I + 4 rho rho^T
+# >= I bounds cond(G) = lambda_max(G), and golden-scale MSA data
+# converges by ~8 iterations. GDCA_DI_NS_ITERS=20 restores the wider
+# margin.
 BM_NS_ITERS = 14
 
 
@@ -206,8 +172,8 @@ def bm_ns_iters() -> int:
     ``GDCA_DI_NS_ITERS`` (integer >= 2) overrides ``BM_NS_ITERS`` for
     A/B measurement — the NS loop is ~65% of the DI-stage HBM traffic
     (3 [s, s, P] matmuls per iteration), so the iteration count is the
-    stage's main lever. The default 14 (round-5 chip flip — see
-    BM_NS_ITERS above) with the min(trace, inf-norm) initial scaling
+    stage's main lever. The default 14 (see BM_NS_ITERS above) with the
+    min(trace, inf-norm) initial scaling
     guarantees convergence for cond(G) up to ~2.25^8 ~ 660 when the
     scale bound is tight (worst case /sqrt(s) when the inf-norm
     overshoots); golden-scale data converges at ~8. Like the
@@ -237,9 +203,7 @@ def _di_pairs_bm(Jb: jax.Array, Li: jax.Array, Lj: jax.Array,
     """Batch-minor DI core on batch-MAJOR inputs ([P, s, s] -> [P]).
 
     Thin wrapper over ``_di_pairs_bm_minor``; prefer the minor-layout
-    entry point when the caller can gather into [s, s, P] directly —
-    batch-major [P, s, s] f32 arrays carry a 7.7x (8, 128)-tiling
-    padding tax on TPU (a 20 x 20 minor block pads to 24 x 128).
+    entry point when the caller can gather into [s, s, P] directly.
     """
     return _di_pairs_bm_minor(jnp.moveaxis(Jb, 0, -1),
                               jnp.moveaxis(Li, 0, -1),
@@ -248,16 +212,15 @@ def _di_pairs_bm(Jb: jax.Array, Li: jax.Array, Lj: jax.Array,
 
 def _di_pairs_bm_minor(J: jax.Array, Li: jax.Array, Lj: jax.Array,
                        iters: int = None) -> jax.Array:
-    """Batch-minor DI core: the TPU-optimized twin of ``_di_pairs``.
+    """Batch-minor DI core: the elementwise twin of ``_di_pairs``.
 
-    Inputs [s, s, P] (pair batch on the lane axis). Same math (rho -> G
+    Inputs [s, s, P] (pair batch on the minor axis). Same math (rho -> G
     -> trace-scaled Newton-Schulz sqrt -> logdet((I + S)/2)/2) but every
-    step is fused vector arithmetic instead of lowering-bound batched
-    20x20 gemms. The logdet is unpivoted Gaussian elimination (H is SPD
-    with spectrum >= 1, so pivots are safe) — XLA's batched tiny
-    Cholesky was both slow and, on some spectra, pathologically slow.
-    The NS iteration count is FIXED (convergence at ~8 iters measured
-    on golden-scale data; 20 leaves margin for cond(G) ~ 3e4) —
+    step is fused vector arithmetic instead of batched 20x20 gemms. The
+    logdet is unpivoted Gaussian elimination (H is SPD with spectrum
+    >= 1, so pivots are safe) instead of a batched tiny Cholesky.
+    The NS iteration count is FIXED (golden-scale data converges at ~8
+    iterations; see BM_NS_ITERS for the margin) —
     data-independent runtime, no while_loop. Elimination pivots are
     clamped at 0.1 (true pivots are >= 1 for converged S) so an
     under-converged S on a pathological spectrum degrades that pair's
@@ -266,13 +229,13 @@ def _di_pairs_bm_minor(J: jax.Array, Li: jax.Array, Lj: jax.Array,
     column divides by the pivot — a tiny pivot blows the column up to
     ~1/clamp and overflows f32 at the next step (see the inline comment
     and docs/MATH.md). Validated against the golden DI files
-    through the force_fallback cross-check and scripts/tpu_check.py.
+    through the force_fallback cross-check and chip_smoke.py.
     """
     if iters is None:
         iters = bm_ns_iters()
     s = J.shape[0]
     P0 = J.shape[-1]
-    # 128-align the lane axis: identity-padded lanes keep every value
+    # 128-align the pair axis: identity-padded lanes keep every value
     # finite (DI of an identity triple is just discarded)
     pad = (-P0) % 128
     if pad:
@@ -296,8 +259,8 @@ def _di_pairs_bm_minor(J: jax.Array, Li: jax.Array, Lj: jax.Array,
     # ~log_2.25(c / lambda_min) + 6, so the TIGHTER bound wins. Both
     # trace and the inf-norm (max abs row sum) bound lambda_max for
     # symmetric PSD G; trace overshoots by up to s (flat spectra), the
-    # inf-norm by up to sqrt(s) — their min is never worse than the
-    # round-2 trace scaling and saves up to ~log_2.25(s) ~ 3.7
+    # inf-norm by up to sqrt(s) — their min is never worse than
+    # trace scaling alone and saves up to ~log_2.25(s) ~ 3.7
     # iterations of margin. Cost: one extra fused pass over G.
     tr = jnp.sum(G[ar, ar, :], axis=0)
     inf = jnp.max(jnp.sum(jnp.abs(G), axis=1), axis=0)
@@ -340,12 +303,10 @@ def _di_pairs_bm_minor(J: jax.Array, Li: jax.Array, Lj: jax.Array,
     return 0.5 * acc[:P0]
 
 
-# the batch-minor core engages above this pair count: measured on-chip,
-# small batch-minor graphs (P ~ 1.4e3 at N=53) hit a ~60 s/run runtime
-# pathology on this stack (lane padding + tiny-tensor op streams),
-# while the batched-gemm XLA path is fast there anyway; large batches
-# (P ~ 8e4) are where batched 20x20 gemms are lowering-bound and the
-# batch-minor layout wins
+# where the platform picks the batch-minor core, it engages at and above
+# this pair count; smaller batches take the gemm scaffold. Correctness-
+# neutral; the value is not yet measured on the H100 (ROADMAP.md lists
+# it).
 _BM_MIN_PAIRS = 16384
 
 
@@ -356,16 +317,12 @@ def _di_pairs(Jb: jax.Array, Li: jax.Array, Lj: jax.Array,
     f32 with ``use_pallas`` truthy and P >= _BM_MIN_PAIRS takes the
     batch-minor fused core (``_di_pairs_bm``); otherwise this is the
     reference jnp path — batched gemms + Newton-Schulz (monitored
-    while_loop in f64 golden mode, fixed-iteration in f32 to avoid the
-    per-iteration host sync) + batched Cholesky — used for f64, small
-    batches, and the force_fallback cross-check.
+    while_loop in f64 golden mode, fixed-iteration in f32) + batched
+    Cholesky — used for f64, small batches, the GPU's f32 path and the
+    force_fallback cross-check.
     """
     if use_pallas and Jb.dtype == jnp.float32 and \
             Jb.shape[0] >= _BM_MIN_PAIRS:
-        import os
-        if os.environ.get("GDCA_DI_FUSED", "").lower() in ("1", "true",
-                                                           "yes"):
-            return _di_tail_gemm(Jb, Li, Lj, _sqrtm_fused)
         return _di_pairs_bm(Jb, Li, Lj)
     if Jb.dtype == jnp.float32:
         # fixed unrolled NS: no per-iteration host sync (see
@@ -377,8 +334,8 @@ def _di_pairs(Jb: jax.Array, Li: jax.Array, Lj: jax.Array,
 def _di_tail_gemm(Jb, Li, Lj, sqrt_fn):
     """The batched-gemm DI scaffold (rho -> G -> sqrt -> logdet),
     parameterized by the matrix-sqrt implementation so the monitored
-    (f64), fixed-iteration (f32), and legacy-Pallas (GDCA_DI_FUSED)
-    variants share one copy of the formula."""
+    (f64) and fixed-iteration (f32) variants share one copy of the
+    formula."""
     s = Jb.shape[-1]
     rho = jnp.einsum("pba,pbc,pcd->pad", Li, Jb, Lj)
     G = jnp.einsum("pab,pcb->pac", rho, rho)
@@ -415,12 +372,11 @@ def di_pairs_bm_gathered(J4: jax.Array, Lsite: jax.Array,
 
     The ONE implementation of the transpose + chunked minor-layout
     gather shared by the single-chip (``di_score``) and mesh-sharded
-    (``parallel/sharded._di_sharded``) paths: [P, s, s] batch-major
-    gathers pay a 7.7x (8, 128)-tiling padding tax, so each chunk
-    gathers straight into [s, s, chunk] and runs ``body`` (default:
-    the batch-minor core; the mesh path passes its shard_map-wrapped
-    twin). Chunks are balanced (no tiny tail slab — small batch-minor
-    graphs are a measured runtime pathology) and sized in multiples of
+    (``parallel/sharded._di_sharded``) paths: each chunk gathers
+    straight into [s, s, chunk] (no batch-major [P, s, s] copy) and runs
+    ``body`` (default: the batch-minor core; the mesh path passes its
+    shard_map-wrapped twin). Chunks are balanced (no tiny tail slab)
+    and sized in multiples of
     ``chunk_multiple`` (the mesh device count, so every per-device slab
     stays equal and large).
     """
@@ -458,9 +414,8 @@ def _plan_row_block(N: int) -> int:
     power of two, so padding waste nearly vanishes (N=400: Npd 512 ->
     402, total lanes 163840 -> 107736, 1.52x fewer flops; at N >= ~900
     the two plans converge). Per-lane math is lane-independent, so any
-    RB gives bit-identical scores. Round 4: the exact-fit A/B became
-    moot — the unrolled formulation (this planner's only consumer) is
-    chip-rejected; see docs/ROADMAP.md item 6."""
+    RB gives bit-identical scores. This planner's only consumer is the
+    unrolled formulation (``GDCA_DI_TILED=unrolled``)."""
     import os
 
     mode = os.environ.get("GDCA_DI_RB", "").strip().lower()
@@ -476,9 +431,9 @@ def _plan_row_block_po2(N: int) -> int:
     """The env-independent power-of-two row-block plan (<= 8 blocks).
 
     ``di_score_bm_mapped`` uses this directly: exact-fit RBs can be
-    prime, which would force its uniform strip plan down to CB=1 — a
-    measured small-lane-batch pathology — and the exact mode's padding
-    saving vanishes by N ~ 900 anyway, far below the mapped range."""
+    prime, which would force its uniform strip plan down to CB=1 (tiny
+    per-step lane batches), and the exact mode's padding saving
+    vanishes by N ~ 900 anyway, far below the mapped range."""
     for rb in (128, 256, 512, 1024, 2048):
         if -(-N // rb) <= 8:
             return rb
@@ -496,10 +451,8 @@ def _plan_row_block_mapped(N: int, lane_chunk: int) -> int:
     are safe, and the padding + diagonal lane waste shrinks (N=400:
     163840 po2 lanes -> 108288, 1.5x fewer flops). Past that fit
     (N > ~2048 at default chunks) a prime RB would collapse the
-    uniform strip plan to CB=1 — the measured small-lane-batch
-    pathology — so the po2 plan stays. Default: po2 (the round-4
-    measured plan; the battery's exact-fit mapped legs decide any
-    flip)."""
+    uniform strip plan to CB=1 (tiny per-step lane batches), so the po2
+    plan stays. Default: po2."""
     import os
 
     mode = os.environ.get("GDCA_DI_RB", "").strip().lower()
@@ -523,9 +476,8 @@ def _tiled_lane_gate(N: int, pair_chunk: int) -> bool:
     O(pair_chunk) memory bound the gathered path provides. Gate the
     unrolled tiled path on RB^2 <= max(pair_chunk, _BM_MIN_PAIRS);
     beyond it the MAPPED dense-tile path (``di_score_bm_mapped``) takes
-    over — NOT the gathered path (round-3 verdict weak #6: falling back
-    to per-lane gathers at exactly the widths where gather cost grows
-    fastest was a silent handoff to a measured-pathological path). An
+    over — NOT the gathered path, whose per-lane gathers grow fastest
+    at exactly these widths. An
     explicit GDCA_DI_RB integer override bypasses the gate (expert
     knob: the caller chose the lane batch)."""
     import os
@@ -539,19 +491,12 @@ def _tiled_lane_gate(N: int, pair_chunk: int) -> bool:
 def _mapped_worthwhile(N: int, lane_chunk: int) -> bool:
     """Whether the mapped dense-tile DI beats the gathered path at N.
 
-    Round-4 chip A/B (e2e, q=21): mapped wins where its diagonal +
-    position-padding lane overhead is modest — N=400 (2.05x lanes,
-    0.38 vs 0.40 s) and N=1000 (1.18x, 2.15 vs 3.17 s) — and loses
-    where it is large — N=200 (2.47x lanes: Npd 200 -> 256 padding on
-    top of the diagonal waste; 0.122 vs 0.088 s). The 2.1x lane-ratio
-    threshold sits between the measured points. CAVEAT: those three
-    points are all q=21 — the gate itself is q-independent while the
-    gathered path's cost scales with s (per-lane [s, s] gathers), so
-    the crossover at other q is extrapolated; the battery's wide-N
-    q=9 legs (`di2500_{mapped,gathered}`, scripts/tpu_session.sh) are
-    the standing re-validation at the one other production alphabet.
-    An explicit integer ``GDCA_DI_RB`` forces mapped (the caller chose
-    the lane batch)."""
+    Mapped computes its diagonal tiles' discarded lanes and the
+    position padding; it is chosen where that lane overhead stays at or
+    below 2.1x the useful pairs (N=400: 2.05x, N=1000: 1.18x, N=200:
+    2.47x). The threshold is q-independent and not yet measured on the
+    H100 (ROADMAP.md lists it). An explicit integer ``GDCA_DI_RB``
+    forces mapped (the caller chose the lane batch)."""
     import os
 
     if os.environ.get("GDCA_DI_RB", "").strip().isdigit():
@@ -650,13 +595,9 @@ def di_score_bm_mapped(J4: jax.Array, Lsite: jax.Array, N: int, *,
     nb = -(-N // RB)
     Npd = nb * RB
     # The coupling stays a FLAT [Npd*s, Npd*s] matrix all the way into
-    # the lax.map body; tiles reshape/transpose per strip. Materializing
-    # the [s, s, Npd, Npd] transposed view (or the padded [Npd, s, Npd,
-    # s] form) across the loop boundary puts the s-sized dim on the
-    # 128-lane axis — a 128/s padding expansion (6.4x at q=21) that
-    # measured 19.6 GB HBM at N=1000 on chip (round-4 battery OOM; the
-    # gathered path escapes it only because XLA fuses its transpose
-    # into the gathers).
+    # the lax.map body; tiles reshape/transpose per strip, so no
+    # full-size [s, s, Npd, Npd] transposed copy of the coupling is
+    # ever materialized across the loop boundary.
     J2 = J4.reshape(N * s, N * s)                # free view of mJ
     if Npd != N:
         pad = Npd - N
@@ -679,7 +620,7 @@ def di_score_bm_mapped(J4: jax.Array, Lsite: jax.Array, N: int, *,
         blk = jax.lax.dynamic_slice(
             J2, (r0 * s, c0 * s), (RB * s, CB * s))
         # [RB*s, CB*s] -> [s, s, RB*CB]: same (i*CB + j) lane order as
-        # the J4T-slice formulation (tile-local transpose, VMEM-scale)
+        # the J4T-slice formulation (tile-local transpose)
         Jb = (blk.reshape(RB, s, CB, s).transpose(1, 3, 0, 2)
               .reshape(s, s, RB * CB))
         Li = jnp.broadcast_to(
@@ -760,31 +701,19 @@ def accounting_plan(N: int, *, pair_chunk: int = 65536,
                     sharded: bool = False) -> tuple:
     """(lanes, iters, trimmed) of the DI formulation the dispatch will
     actually EXECUTE — the one accounting mirror utils/flops.py
-    consumes. ``requested_bm`` is the caller's coarse gate (TPU + f32 +
-    kernels on); the ``P >= _BM_MIN_PAIRS`` and ``GDCA_DI_FUSED`` legs
-    of the real gate live HERE so the accounting cannot drift from
-    ``di_score`` (round-5 review finding: mesh, fused, and small-N
-    runs were billed under the mapped dense-tile trimmed plan they
-    never execute).
+    consumes. ``requested_bm`` is the caller's coarse gate (the
+    platform's batch-minor choice + f32 + kernels on); the
+    ``P >= _BM_MIN_PAIRS`` leg of the real gate lives HERE so the
+    accounting cannot drift from ``di_score``.
 
-    - fused (``GDCA_DI_FUSED``, opt-in): the legacy Pallas NS kernel
-      through the gemm scaffold — ``di_pairs_flat`` chunk padding,
-      ~bm-count iterations (18 in-kernel + 2 refine), untrimmed;
     - sharded (mesh runs): every storage-sharded body feeds exact-P
       lane slabs to the core (the tiled body's strip overhead is
       ndev-dependent and NOT counted — a slight undercount);
     - small P (< ``_BM_MIN_PAIRS``) or non-bm: the gemm scaffold at
       ``FALLBACK_NS_ITERS`` fixed untrimmed iterations.
     """
-    import os
-
     P = N * (N - 1) // 2
-    fused = os.environ.get("GDCA_DI_FUSED", "").lower() in ("1", "true",
-                                                            "yes")
     bm = requested_bm and P >= _BM_MIN_PAIRS
-    if bm and fused:
-        return (planned_lane_count(N, pair_chunk=pair_chunk, bm=False),
-                bm_ns_iters(), False)
     if bm and sharded:
         return (planned_lane_count(N, pair_chunk=pair_chunk, bm=True,
                                    mode="0"),
@@ -809,7 +738,7 @@ def planned_lane_count(N: int, *, pair_chunk: int = 65536,
       i >= j lanes) streamed as nstrips uniform RB x CB strips per
       tile — tiles * nstrips * pad128(RB * CB) lanes;
     - unrolled dense-tile (``GDCA_DI_TILED=unrolled`` A/B knob, within
-      ``_tiled_lane_gate``; chip-rejected as default): RB^2 lanes per
+      ``_tiled_lane_gate``): RB^2 lanes per
       tile, each tile lane-padded to a multiple of 128;
     - gathered bm (`GDCA_DI_TILED=0` A/B knob): exact P lanes in
       balanced chunks, each chunk padded to a multiple of 128;
@@ -897,15 +826,13 @@ def di_score(mJ: jax.Array, C: jax.Array, q: int,
 
     ``use_pallas=False`` forces the reference jnp path (monitored
     Newton-Schulz + batched Cholesky — also the f64 golden path).
-    Otherwise, on a TPU backend the f32 batch-minor fused core
-    ``_di_pairs_bm`` runs by default; setting GDCA_DI_FUSED truthy
-    ("1"/"true"/"yes") selects the legacy Pallas NS kernel instead
-    (~67 s Mosaic compile per shape class). The env var is read at
-    TRACE time: set it before the first DI call of a shape class.
+    Otherwise the platform's formulation (ops/dispatch.py) decides:
+    where it picks the batch-minor core, f32 pair batches of at least
+    ``_BM_MIN_PAIRS`` run it.
     """
     if use_pallas is not False:
-        from gaussdca_tpu.ops.dispatch import _on_tpu
-        use_pallas = _on_tpu()
+        from gaussdca_tpu.ops import dispatch
+        use_pallas = dispatch.formulation().di_batch_minor
     s = q - 1
     Ns = mJ.shape[0]
     N = Ns // s
@@ -916,28 +843,21 @@ def di_score(mJ: jax.Array, C: jax.Array, q: int,
     P = iu.size
 
     import os
-    bm = (use_pallas and mJ.dtype == jnp.float32 and P >= _BM_MIN_PAIRS
-          and os.environ.get("GDCA_DI_FUSED", "").lower()
-          not in ("1", "true", "yes"))
+    bm = use_pallas and mJ.dtype == jnp.float32 and P >= _BM_MIN_PAIRS
     if bm:
         # dense-tile formulation by default (no gathers), STREAMED
         # through the fixed lane buffer at every N (O(lane_chunk)
         # memory — never a silent handoff to the gathered path, whose
-        # per-lane fancy gathers are measured-pathological exactly at
-        # wide N). GDCA_DI_TILED=0 reverts to the chunked gathered
-        # path for A/B measurement; =unrolled selects the
-        # chip-rejected unrolled per-tile graph.
+        # per-lane gathers grow fastest at wide N). GDCA_DI_TILED=0
+        # reverts to the chunked gathered path for A/B measurement;
+        # =unrolled selects the unrolled per-tile graph.
         mode = os.environ.get("GDCA_DI_TILED", "1").lower()
         if mode not in ("0", "false", "no"):
             # streamed dense tiles wherever their lane overhead is
-            # modest (round-4 battery: mapped 0.38/2.15 s at
-            # N=400/1000 vs gathered 0.40/3.17 s; gathered 0.088 s at
-            # N=200 vs mapped 0.122 s — _mapped_worthwhile), with
-            # O(lane_chunk) memory. The unrolled per-tile graph is
-            # rejected on the real runtime (compile > 900 s at N=400,
-            # 19.8 GB HBM OOM at N=1000); "unrolled" keeps it
-            # reachable for A/B within its gate, "mapped" forces the
-            # streamed form below the ratio gate.
+            # modest (_mapped_worthwhile), with O(lane_chunk) memory;
+            # "unrolled" keeps the per-tile graph reachable for A/B
+            # within its gate, "mapped" forces the streamed form below
+            # the ratio gate.
             lane_chunk = max(pair_chunk, _BM_MIN_PAIRS)
             if mode == "unrolled" and _tiled_lane_gate(N, pair_chunk):
                 return di_score_bm_tiled(J4, Lsite, N)

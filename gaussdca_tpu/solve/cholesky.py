@@ -2,17 +2,17 @@
 
 The reference's L5 is ``mJ = inv(cholesky(C))`` (/root/reference/src/
 GaussDCA.jl:34) — LAPACK dpotrf + dpotri on the dense N*s square matrix.
-Here: ``jnp.linalg.cholesky`` + triangular solves against the identity,
-which XLA lowers to its native blocked TPU factorization/TRSM. The result
-is symmetrized (dpotri fills one triangle and mirrors it; cho_solve's
+Here: ``jnp.linalg.cholesky`` + triangular solves against the identity
+(cuSOLVER / cuBLAS on the GPU, LAPACK-like on the CPU). The result is
+symmetrized (dpotri fills one triangle and mirrors it; cho_solve's
 round-off asymmetry is ~ulp but the score stages read both triangles).
 
-In f32 (the TPU dtype) the Cholesky error amplifies with cond(C) —
-visible in the DI scores at small pseudocounts. ``refine_iters`` runs
+In f32 (the accelerator dtype) the Cholesky error amplifies with cond(C)
+— visible in the DI scores at small pseudocounts. ``refine_iters`` runs
 Newton's iteration X <- X(2I - CX) after the factorization: each step
-costs two (Ns)^3 matmuls (HIGHEST precision) and roughly squares the
-residual, recovering most of the f64 accuracy without f64 hardware
-support. f64 (CPU golden mode) needs no refinement.
+costs two (Ns)^3 matmuls (HIGHEST residual) and roughly squares the
+residual, recovering most of the f64 accuracy at f32 cost. f64 (golden
+mode) needs no refinement.
 
 A mesh-sharded blocked factorization for N*s >> 10^3 lives in
 solve/blocked.py.
@@ -30,18 +30,11 @@ from jax.scipy.linalg import cho_solve, solve_triangular
 def _residual_precision():
     """Precision of the Newton RESIDUAL matmul (trace-time env knob).
 
-    ``high`` was the round-5 speed candidate — 0.996 s vs 1.251 s at
-    Ns=20000 (1.26x; the residual matmul is 2n^3 flops at the 6-pass
-    HIGHEST ceiling, ~45% of that solve wall) — and it is REJECTED as
-    the default on the same session's golden gate: the residual floor
-    degrades 1.3e-6 -> 2.7e-5, and on the real chip that broke ALL
-    FOUR golden configs (frob 8.9e-4 vs tol 5e-4 at Ns=1060 — frob
-    never touches the DI core, so the solve alone did it — and
-    large-DI 8.4e-3 vs tol 1e-3 with a top-100 rank flip;
-    chip_sessions/tpu_session_r5/golden.json). Rank identity is the
-    product requirement, so the 26% solve win is not available as a
-    default; ``GDCA_SOLVE_RES_PREC=high`` stays as an opt-in for
-    throughput-over-accuracy scans.
+    The residual R = I - C X sets the refined inverse's accuracy floor,
+    so it runs HIGHEST (full f32) by default. ``high`` (TF32 on the
+    H100, which rounds operands to a 10-bit mantissa) is an opt-in for
+    throughput-over-accuracy scans: a coarser residual floor can break
+    the golden rank identity, which is the product requirement.
     """
     v = os.environ.get("GDCA_SOLVE_RES_PREC", "highest").strip().lower()
     try:
@@ -67,9 +60,8 @@ def newton_refine(C: jax.Array, X: jax.Array, iters: int,
     The residual matmul R = I - C X sets the achievable floor and runs
     HIGHEST by default (``GDCA_SOLVE_RES_PREC`` overrides — see
     ``_residual_precision``); the correction is small (~||R||), so its
-    own rounding contributes ~eps_bf16 * ||R|| — negligible. Measured
-    on-chip at Ns=8000: corr at DEFAULT gives the same 2e-6 residual as
-    HIGHEST at half the refinement cost (PERFORMANCE.md, solve section).
+    own rounding contributes ~eps * ||R|| of the operand precision
+    (TF32 at DEFAULT on the H100) — small against the residual itself.
     """
     p = _residual_precision()
     pc = corr_precision if corr_precision is not None else p
@@ -106,10 +98,9 @@ def tri_inverse_doubling(L: jax.Array, base: int,
     invert all nb = n/base diagonal blocks in ONE batched TRSM, then
     combine pairs bottom-up — each of the log2(nb) levels is two batched
     matmuls over independent pairs. Total n^3/3 flops, nearly all in
-    large MXU matmuls, vs XLA's TriangularSolve which serializes
-    128-wide panel steps (measured 5x faster at Ns=8000,
-    PERFORMANCE.md). ``n`` must equal base * 2^k (see ``_doubling_plan``;
-    identity-pad the factor otherwise).
+    large matmuls instead of a triangular solve's serial panel steps.
+    ``n`` must equal base * 2^k (see ``_doubling_plan``; identity-pad
+    the factor otherwise).
     """
     n = L.shape[0]
     nb = n // base
@@ -161,7 +152,7 @@ def syrk_lower_blocked(Li: jax.Array, base: int,
     block row K, width (K+1)*base) per block row touches only the ~n^3/3
     MACs that are structurally nonzero — same math, same per-block
     precision, different (block) summation order, so it agrees with the
-    dense product to f32 rounding. Every flop is one large MXU matmul
+    dense product to f32 rounding. Every flop is one large matmul
     ([w, base] x [base, w], contraction >= base); the accumulator update
     is an in-place windowed add (XLA aliases the carry buffer under
     jit). ``n`` must be a multiple of ``base`` (the doubling plan's
@@ -182,12 +173,11 @@ def syrk_lower_slab(Li: jax.Array, nslab: int = 8,
                     prec=jax.lax.Precision.HIGH) -> jax.Array:
     """X = Li^T @ Li for LOWER-triangular Li via disjoint column slabs.
 
-    The round-5 battery REJECTED ``syrk_lower_blocked`` on chip: its
-    growing-window accumulator (`X.at[:w, :w].add`) does not alias —
-    XLA copies the full [n, n] buffer every one of the 32 steps (~26 GB
-    extra HBM traffic, 2.23 s vs the 1.25 s dense-syrk solve) and the
-    32-shape unrolled graph blew a 1200 s compile budget. This variant
-    keeps the structural-zero saving without either failure mode: for
+    ``syrk_lower_blocked``'s growing-window accumulator
+    (`X.at[:w, :w].add`) need not alias, so XLA may copy the full
+    [n, n] buffer every step, and its unrolled graph has one shape per
+    block row. This variant keeps the structural-zero saving without
+    either: for
     column slab J (j0 = J * sw), lower-triangularity makes
     ``X[j0:, slab] = Li[j0:, j0:]^T @ Li[j0:, slab]`` exact (rows
     k < i of Li are zero), so each slab is ONE matmul with a DISJOINT
@@ -213,11 +203,9 @@ def syrk_lower_slab(Li: jax.Array, nslab: int = 8,
 
 
 def _syrk_impl():
-    """``GDCA_SOLVE_SYRK``: ``dense`` (default, the measured round-2
-    path) | ``slab`` (``syrk_lower_slab``, the round-5 candidate) |
-    ``blocked`` (``syrk_lower_blocked`` — REJECTED on chip, round-5
-    battery: accumulator copies + compile blow-up; kept for the
-    record). Default flips only on a measured win. Unknown values
+    """``GDCA_SOLVE_SYRK``: ``dense`` (default) | ``slab``
+    (``syrk_lower_slab``) | ``blocked`` (``syrk_lower_blocked``). The
+    default flips only on a win measured on the card. Unknown values
     raise (a typo'd A/B leg must not silently measure dense)."""
     v = os.environ.get("GDCA_SOLVE_SYRK", "dense").strip().lower()
     if v not in ("dense", "slab", "blocked"):
@@ -230,10 +218,9 @@ def chunked_cho_inverse(L: jax.Array, rhs_chunk: int) -> jax.Array:
     """inv from a Cholesky factor, solving ``rhs_chunk`` identity columns
     per lax.map step.
 
-    XLA's TPU TriangularSolve keeps every internal block-step buffer
-    live (~n/128 copies of the full RHS): a one-shot n x n solve at
-    n = 20000 wants ~117 GB of HBM. Chunking the RHS bounds the live
-    set at ~(n/128) * n * rhs_chunk * 4 bytes.
+    A one-shot n x n triangular solve against the identity holds the
+    full RHS and the solver's working copies at once; chunking the RHS
+    bounds the live set by ``rhs_chunk`` columns per step.
     """
     n = L.shape[0]
     nc = -(-n // rhs_chunk)
@@ -251,17 +238,15 @@ def chunked_cho_inverse(L: jax.Array, rhs_chunk: int) -> jax.Array:
     return X[:, :n]
 
 
-# above this size the one-shot TRSM exceeds single-chip HBM (see
-# chunked_cho_inverse); 8000 (the large-golden width) still fits easily
+# Size thresholds of the solve paths. All three are correctness-neutral
+# (every path is refined to the same residual) and none is yet measured
+# on the H100 (ROADMAP.md lists them):
+# - above _CHUNKED_SOLVE_MIN the identity RHS is solved in chunks
+#   (chunked_cho_inverse) to bound the live set;
+# - f32 solves of size [_DOUBLING_MIN, _DOUBLING_MAX] take the doubling
+#   path: below it the padding/gather overhead is not worth it, above
+#   it several (Ns)^2 buffers live at the top combine level.
 _CHUNKED_SOLVE_MIN = 8192
-
-# below this the f32 doubling path isn't worth its padding/gather
-# overhead (small solves are dispatch-latency-bound anyway); above the
-# max, the doubling accumulator's gather/scatter copies (several (Ns)^2
-# buffers live at the top combine level) crowd single-chip HBM — the
-# chunked-TRSM path with its bounded live set takes over there
-# (measured at Ns=20000: doubling 2.2 s vs chunked 2.5 s, so the cap
-# sits above the N=1000/q=21 production width)
 _DOUBLING_MIN = 2048
 _DOUBLING_MAX = 24576
 
@@ -270,13 +255,10 @@ def _spd_inverse_doubling(C: jax.Array, refine_iters: int) -> jax.Array:
     """f32 fast path: Cholesky -> doubling triangular inverse (HIGH
     matmuls) -> Linv^T Linv at HIGH -> mixed-precision Newton.
 
-    Measured at Ns=8000 on-chip: 122 ms vs 178 ms for the
-    cho_solve(+HIGHEST Newton) path at the same ~2e-6 residual: XLA's
-    TriangularSolve serializes 128-wide panel steps at ~7 TF/s, while
-    every flop here lands in large batched MXU matmuls. The precision
-    split (PERFORMANCE.md solve section): the combine/syrk stages only
-    need a good Newton STARTING point; the final accuracy comes from
-    the HIGHEST residual matmul in ``newton_refine``.
+    Every flop lands in large batched matmuls. The precision split: the
+    combine/syrk stages only need a good Newton STARTING point; the
+    final accuracy comes from the HIGHEST residual matmul in
+    ``newton_refine``.
     """
     n = C.shape[0]
     npad, base, _ = _doubling_plan(n)
@@ -286,11 +268,12 @@ def _spd_inverse_doubling(C: jax.Array, refine_iters: int) -> jax.Array:
         Cp = Cp.at[jnp.arange(n, npad), jnp.arange(n, npad)].set(1.0)
     with jax.default_matmul_precision("default"):
         L = jnp.linalg.cholesky(Cp)
-    # combine/syrk at HIGH (3-pass bf16 ~ f32 accuracy): DEFAULT (1-pass
-    # bf16) was measured 40x worse on the ill-conditioned golden-large
-    # covariance (pc=0.2, Meff~26) — one Newton step cannot recover a
-    # bf16-accurate start there. HIGH costs only a few ms more (the
-    # combines are n^3/3 of mostly-batched matmuls).
+    # combine/syrk at HIGH, which the H100 runs in TF32 exactly like
+    # DEFAULT (measured: 2.8e-4 relative error on a 2048^3 product,
+    # against 2.1e-6 at HIGHEST). The golden gate passes with it on the
+    # card (large DI config: max abs error 6.9e-4, tolerance 1e-3);
+    # HIGHEST for the combines did NOT help — 1.28e-3 and a top-100
+    # flip — so HIGH stays.
     Li = tri_inverse_doubling(L, base, prec=jax.lax.Precision.HIGH)
     impl = _syrk_impl()
     if impl == "slab":
@@ -308,22 +291,20 @@ def spd_inverse(C: jax.Array, *, refine_iters: int = None,
                 rhs_chunk: int = 0) -> jax.Array:
     """Inverse of a symmetric positive-definite matrix via Cholesky.
 
-    ``refine_iters=None`` picks the dtype default: 1 Newton step in f32
-    (TPU), 0 in f64 (CPU golden mode, already at working precision).
+    ``refine_iters=None`` picks the dtype default: 1 Newton step in f32,
+    0 in f64 (golden mode, already at working precision).
 
-    f64 (golden mode) runs the LAPACK-like path: Cholesky + triangular
-    solves against the identity (``rhs_chunk=0`` auto-selects one-shot
-    below 8192, chunked identity columns above — HBM bound, see
+    f64 runs the LAPACK-like path: Cholesky + triangular solves against
+    the identity (``rhs_chunk=0`` auto-selects one-shot below
+    ``_CHUNKED_SOLVE_MIN``, chunked identity columns above — see
     ``chunked_cho_inverse``).
 
-    f32 at 2048 <= Ns <= 24576 runs the doubling fast path
-    (``_spd_inverse_doubling``): all-matmul triangular inversion +
-    mixed-precision Newton — same residual, ~1.6x faster on-chip, and a
-    far smaller live set than XLA's TRSM at wide Ns. The factorization
-    runs at DEFAULT matmul precision even under an ambient "highest"
-    context: measured on-chip, multi-pass chol/TRSM is ~35x slower and
-    gives the SAME residual — the f32 accuracy comes from the HIGHEST
-    residual matmul in the Newton refinement, not the factorization.
+    f32 at ``_DOUBLING_MIN <= Ns <= _DOUBLING_MAX`` runs the doubling
+    path (``_spd_inverse_doubling``): all-matmul triangular inversion +
+    mixed-precision Newton. The factorization runs at DEFAULT matmul
+    precision even under an ambient "highest" context: the f32
+    accuracy comes from the HIGHEST residual matmul in the Newton
+    refinement, not the factorization.
     """
     n = C.shape[0]
     if refine_iters is None:

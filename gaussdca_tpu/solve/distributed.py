@@ -38,14 +38,18 @@ could replicate):
   a broadcast transpose for the per-step symmetrization.
 
 Numerics: f64 agrees with the replicated ``spd_inverse`` to
-factorization round-off (~1e-13 rel); f32 relies on the Newton step for
-accuracy exactly like the single-chip doubling path (the factorization
-matmuls run at HIGH — 3-pass bf16 ~ f32 — because a 1-pass-bf16 start
-is unrecoverable on ill-conditioned covariances; see
-solve/cholesky._spd_inverse_doubling). Validated against the replicated
-path and NumPy in tests/test_distributed_solve.py, including a
-compiled-memory-analysis assertion that per-device footprint scales as
-1/ndev.
+factorization round-off (~1e-13 rel); f32 follows the single-card
+doubling recipe (solve/cholesky._spd_inverse_doubling): a full-f32
+Cholesky factor, the triangular inverse and the Gram product at HIGH
+(TF32 on the H100), then the Newton step. The factorization's panel and
+trailing-update matmuls therefore run HIGHEST: the single card's
+factor comes from the solver library in full f32, and at HIGH (TF32)
+the blocked factor of the ill-conditioned large golden covariance was
+too coarse for one Newton step — on four H100s the mesh DI scores were
+2.3e-2 from the single card's, with a 3/100 top-100 loss. Validated
+against the replicated path and NumPy in tests/test_distributed_solve.py,
+including a compiled-memory-analysis assertion that per-device
+footprint scales as 1/ndev.
 
 Known inefficiency (documented, not accidental): each device updates
 all w of its local rows every step, including rows already factored
@@ -235,7 +239,7 @@ def spd_inverse_dist(C: jax.Array, *, mesh: Mesh, block: int = 1024,
     def local(Cl):
         aidx = _flat_index(names, sizes)
         L = _chol_local(Cl, aidx, npad=npad, w=w, b=b, names=names,
-                        prec=_HIGH)
+                        prec=_HIGHEST)
         W = _tri_inv_local(L, aidx, npad=npad, w=w, b=b, names=names,
                            prec=_HIGH)
         X = _syrk_local(W, aidx, npad=npad, w=w, ndev=ndev, names=names,

@@ -10,21 +10,20 @@ as consumed at /root/reference/src/GaussDCA.jl:28 and by ``compute_C``
 - ``Pij[(i*s+a), (j*s+b)] = sum_m W[m] * 1[Z[m,i]==a+1] * 1[Z[m,j]==b+1] / Meff``
   for i != j, and the i == j diagonal blocks equal ``diag(Pi_i)``.
 
-TPU-first design: both statistics are a single MXU matmul over the one-hot
+Design: both statistics are a single matmul over the one-hot
 expansion E [M, N*s] (zero row for the gauge state):
 ``Pi = W @ E / Meff`` and ``Pij = E^T diag(W) E / Meff``. The one-hot
 product reproduces the diagonal blocks exactly (1[Z=a]*1[Z=b] = delta_ab),
 so no fixup pass is needed. Under data-parallel sharding of M this becomes
 a psum-reduced local matmul (parallel/sharded.py).
 
-Why no Pallas kernel here (unlike ops/distance.py): the weights W carry
-~7 significant digits, so the contraction needs true f32 matmuls —
-which on the MXU are bf16 multi-pass, the same thing XLA emits for
-``precision=HIGHEST``. Fusing the one-hot expansion into a custom kernel
-would only save the E read-back (~tens of ms at M=1e5), while the stage
-is compute-bound; the real scaling lever is memory, handled below by
+Why no custom kernel here (unlike the row statistics of ops/): the
+weights W carry ~7 significant digits, so the contraction needs true f32
+matmuls (``precision=HIGHEST``; a DEFAULT f32 dot may run in TF32 on the
+GPU). Fusing the one-hot expansion into a custom kernel would only save
+the E read-back; the scaling lever is memory, handled below by
 ``m_chunk``: a lax.scan over sequence chunks accumulates Pi/Pij in
-O(m_chunk * N * s) working memory, so 1e5+ sequence MSAs run single-chip
+O(m_chunk * N * s) working memory, so 1e5+ sequence MSAs run on one card
 without ever materializing the full [M, N*s] one-hot.
 """
 

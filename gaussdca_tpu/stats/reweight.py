@@ -15,9 +15,9 @@ weighting stage as consumed at /root/reference/src/GaussDCA.jl:28 with
 
 This module is the pure-jnp reference path ("fallback" in the sense of the
 reference's DCAUTILS_FORCE_FALLBACK cross-check, test/runtests.jl:78-86).
-The TPU-optimized path lives in ops/distance.py (tiled MXU one-hot matmul
-Pallas kernel) and must agree exactly — distances are small integers, exact
-in every dtype.
+The accelerated path (``compute_weights_streaming`` with the int8 one-hot
+GEMM row stats of ops/distance.py) must agree exactly — distances are
+small integers, exact in every dtype.
 """
 
 from __future__ import annotations
@@ -117,7 +117,6 @@ def compute_weights(
     theta: Union[str, float],
     *,
     dtype=jnp.float64,
-    match_counts_fn=None,
     m_true: int = None,
     n_true: int = None,
     q: int = None,
@@ -125,8 +124,7 @@ def compute_weights(
     """(W, Meff, resolved_theta) for a token matrix Z [M, N].
 
     ``theta`` is "auto" or a real in [0, 1] (static: selects the traced
-    graph). ``match_counts_fn`` lets the TPU path inject the Pallas kernel.
-    ``m_true`` / ``n_true``: unpadded sequence / position counts (Python
+    graph). ``m_true`` / ``n_true``: unpadded sequence / position counts (Python
     ints or traced scalars — traced keeps one compiled graph across a
     padding bucket) when Z carries token-0 padding rows / columns.
     Padding matches nothing — not even itself (one-hot semantics in both
@@ -136,7 +134,7 @@ def compute_weights(
     """
     M, Np = Z.shape
     Nt = Np if n_true is None else jnp.asarray(n_true)
-    counts = (match_counts_fn or match_counts)(Z)
+    counts = match_counts(Z)
     if isinstance(theta, str):
         if theta != "auto":
             raise ValueError(f"invalid theta: {theta}")
@@ -167,8 +165,7 @@ def total_matches_closed_form(Z: jax.Array, q: int,
     only this total, not per-pair data), collapsing the reference's
     two-pass reweighting design (SURVEY.md 7.4) to a single pass. Token 0
     (padding) is excluded by summing c over 1..q only. Exact in f64; in
-    f32 the n^2 accumulation carries ~1e-7 relative error (same envelope
-    as the kernels' f32 rowsum accumulation it replaces).
+    f32 the n^2 accumulation carries ~1e-7 relative error.
     """
     def body(c, acc):
         nc = jnp.sum((Z == c).astype(dtype), axis=0)
@@ -189,7 +186,8 @@ def compute_weights_streaming(
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """(W, Meff, resolved_theta) in O(M) memory via the row-stats kernel.
 
-    ``row_stats_fn(Z, thresh, q) -> (rowsum, below)`` per ops/distance.py.
+    ``row_stats_fn(Z, thresh, q) -> (rowsum, below)`` per ops/distance.py
+    (integer counts).
     Same semantics as ``compute_weights`` but never materializes the
     [M, M] match matrix, so it scales to 1e5+ sequences. Unlike the
     reference's two-pass design (mean-identity pass, then threshold

@@ -4,7 +4,7 @@ The pair-block score stages (Frobenius / DI) conceptually build an
 ``[N, s, N, s]`` tensor; materializing it costs O((N*s)^2) HBM (0.5 GB at
 N=400 in f64). Instead we map a per-row function over chunks of rows:
 memory drops to O(chunk * N * s^2) while each chunk still vectorizes on
-the VPU/MXU via an inner vmap.
+the device via an inner vmap.
 """
 
 from __future__ import annotations

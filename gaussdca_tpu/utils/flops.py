@@ -26,7 +26,7 @@ def pipeline_flops(M: int, N: int, q: int, *, score: str = "frob",
 
     Reweighting counts the one-hot-matmul formulation (2*M^2*N*q) for
     the ONE all-pairs pass the pipeline runs regardless of theta mode:
-    since round 2, auto-theta is the closed-form histogram reduction
+    auto-theta is the closed-form histogram reduction
     (sum of squared per-column state counts, O(M*N*q) — see
     stats/reweight.total_matches_closed_form), not a second distance
     pass. The solve counts potrf+potri-equivalent (Ns)^3 plus
@@ -54,16 +54,16 @@ def pipeline_flops(M: int, N: int, q: int, *, score: str = "frob",
     if score == "DI":
         from gaussdca_tpu.score.di import accounting_plan, matmuls_per_lane
 
-        # ``bm``: the caller's coarse gate — TPU + f32 + kernels on
-        # (f64 golden / forced-fallback runs execute the gemm scaffold:
-        # exact chunk-padded lanes, FALLBACK_NS_ITERS fixed iterations;
-        # the f64 monitored loop exits earlier, so its count is an
-        # upper bound). ``sharded``: mesh runs execute the
-        # storage-sharded bodies (exact-P lane slabs), not the mapped
-        # dense-tile plan. The P-threshold and GDCA_DI_FUSED legs of
-        # the real gate live in di.accounting_plan, next to the
-        # dispatch they mirror — accounting drifted from the executed
-        # graph three rounds running when any constant lived here.
+        # ``bm``: the caller's coarse gate — the platform's batch-minor
+        # choice + f32 + kernels on (the gemm scaffold otherwise: exact
+        # chunk-padded lanes, FALLBACK_NS_ITERS fixed iterations; the
+        # f64 monitored loop exits earlier, so its count is an upper
+        # bound). ``sharded``: mesh runs execute the storage-sharded
+        # bodies (exact-P lane slabs), not the mapped dense-tile plan.
+        # The P-threshold leg of the real gate lives in
+        # di.accounting_plan, next to the dispatch it mirrors —
+        # accounting drifted from the executed graph when any constant
+        # lived here.
         lanes, iters, trimmed = accounting_plan(N, requested_bm=bm,
                                                 sharded=sharded)
         out["score"] = lanes * matmuls_per_lane(iters, trimmed=trimmed) \

@@ -16,7 +16,7 @@ sys.path.insert(0, __file__.rsplit("/tests/", 1)[0])
 import bench  # noqa: E402
 
 
-def _floors(tmp_path, entries_low=None, entries_high=None, backend="cpu"):
+def _floors(tmp_path, entries_low=None, entries_high=None, backend="gpu"):
     path = tmp_path / "floor.json"
     path.write_text(json.dumps({
         "backend": backend,
@@ -32,9 +32,9 @@ def test_injected_di_slowdown_is_caught(tmp_path):
     path = _floors(tmp_path, entries_low={
         "family_di_s": {"value": 1.0, "spread": 0.02}})
     measured = {"family_di_s": 1.0 * 1.20}          # injected +20%
-    assert bench.check_floors(measured, path) == 1
+    assert bench.check_floors(measured, path, "gpu") == 1
     # within tolerance: 8% is inside max(2*2%, 10%)
-    assert bench.check_floors({"family_di_s": 1.08}, path) == 0
+    assert bench.check_floors({"family_di_s": 1.08}, path, "gpu") == 0
 
 
 def test_spread_widens_tolerance(tmp_path):
@@ -42,31 +42,31 @@ def test_spread_widens_tolerance(tmp_path):
     20% fails."""
     path = _floors(tmp_path, entries_low={
         "deep_msa_s": {"value": 2.0, "spread": 0.09}})
-    assert bench.check_floors({"deep_msa_s": 2.0 * 1.15}, path) == 0
-    assert bench.check_floors({"deep_msa_s": 2.0 * 1.20}, path) == 1
+    assert bench.check_floors({"deep_msa_s": 2.0 * 1.15}, path, "gpu") == 0
+    assert bench.check_floors({"deep_msa_s": 2.0 * 1.20}, path, "gpu") == 1
 
 
 def test_higher_is_better_direction(tmp_path):
     path = _floors(tmp_path, entries_high={
         "pairs_per_s": {"value": 1e10, "spread": 0.01}})
-    assert bench.check_floors({"pairs_per_s": 0.95e10}, path) == 0
-    assert bench.check_floors({"pairs_per_s": 0.85e10}, path) == 1
+    assert bench.check_floors({"pairs_per_s": 0.95e10}, path, "gpu") == 0
+    assert bench.check_floors({"pairs_per_s": 0.85e10}, path, "gpu") == 1
 
 
 def test_legacy_scalar_floor_keeps_blanket_tolerance(tmp_path):
     """Old-format scalar floors (no recorded spread) keep the historic
     15% blanket so an un-repinned file still gates."""
     path = _floors(tmp_path, entries_low={"family_frob_s": 1.0})
-    assert bench.check_floors({"family_frob_s": 1.14}, path) == 0
-    assert bench.check_floors({"family_frob_s": 1.16}, path) == 1
+    assert bench.check_floors({"family_frob_s": 1.14}, path, "gpu") == 0
+    assert bench.check_floors({"family_frob_s": 1.16}, path, "gpu") == 1
 
 
 def test_backend_mismatch_refused(tmp_path):
-    path = _floors(tmp_path, backend="tpu",
+    path = _floors(tmp_path, backend="cpu",
                    entries_low={"family_di_s": {"value": 1.0,
                                                 "spread": 0.0}})
-    # this test process runs the CPU backend; TPU floors must be refused
-    assert bench.check_floors({"family_di_s": 0.5}, path) == 1
+    # floors recorded on another platform must be refused
+    assert bench.check_floors({"family_di_s": 0.5}, path, "gpu") == 1
 
 
 def test_pin_floors_median_and_spread():

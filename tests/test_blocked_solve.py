@@ -122,7 +122,7 @@ def test_tri_inverse_doubling_matches_trsm():
 
 def test_spd_inverse_doubling_path_f32():
     """The f32 doubling fast path agrees with the cho_solve path to the
-    Newton floor (it engages for 2048 <= Ns <= 24576 on the TPU dtype)."""
+    Newton floor (it engages for 2048 <= Ns <= 24576 in f32)."""
     from gaussdca_tpu.solve.cholesky import (_spd_inverse_doubling,
                                              spd_inverse)
 
@@ -137,7 +137,7 @@ def test_spd_inverse_doubling_path_f32():
 
 
 def test_syrk_lower_blocked_matches_dense():
-    """The blocked triangular syrk (round-5 solve candidate) is the
+    """The blocked triangular syrk (a solve candidate) is the
     same product as Li^T @ Li with the structurally-zero block products
     skipped — identical to dense up to (block) summation order."""
     from gaussdca_tpu.solve.cholesky import syrk_lower_blocked
@@ -160,9 +160,8 @@ def test_solve_env_knobs(monkeypatch):
     """GDCA_SOLVE_SYRK / GDCA_SOLVE_RES_PREC are trace-time A/B knobs:
     the blocked-syrk doubling path must agree with the dense-syrk
     default to the Newton floor, and the residual-precision map must
-    default to HIGHEST (round-5 chip gate: the `high` candidate was
-    1.26x on the Ns=20000 solve but its 2.7e-5 residual floor broke
-    all four golden configs on chip, frob included — rejected)."""
+    default to HIGHEST (a coarser residual floor can break the golden
+    rank identity)."""
     from gaussdca_tpu.solve.cholesky import (_residual_precision,
                                              _spd_inverse_doubling,
                                              _syrk_impl)
@@ -192,8 +191,8 @@ def test_solve_env_knobs(monkeypatch):
 
 
 def test_syrk_lower_slab_matches_dense(monkeypatch):
-    """The slab syrk (round-5 candidate #2, after the chip rejected the
-    windowed-accumulator blocked form) is the same product as Li^T @ Li:
+    """The slab syrk (the alternative to the windowed-accumulator
+    blocked form) is the same product as Li^T @ Li:
     lower-triangularity makes X[j0:, slab] = Li[j0:, j0:]^T Li[j0:, slab]
     exact, and the block-upper triangle is the mirrored transpose."""
     from gaussdca_tpu.solve.cholesky import (_spd_inverse_doubling,

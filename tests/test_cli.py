@@ -144,7 +144,7 @@ def test_retryable_predicate():
 
     assert _retryable(RuntimeError("boom"))
     assert _retryable(FakeXla("RESOURCE_EXHAUSTED"))
-    assert _retryable(OddError("DEADLINE_EXCEEDED: tunnel"))
+    assert _retryable(OddError("DEADLINE_EXCEEDED: collective"))
     assert not _retryable(ValueError("q too big"))
     assert not _retryable(OSError("no such file"))
     assert not _retryable(TypeError("bad arg"))
@@ -261,7 +261,7 @@ def test_di_flops_track_scoring_code(monkeypatch):
     monkeypatch.setenv("GDCA_DI_TILED", "0")
     lanes_gathered = di.planned_lane_count(N)
     assert P <= lanes_gathered < P + 2 * 128 * (P // 65536 + 1)
-    # exact-fit RB shrinks the UNROLLED (chip-rejected, A/B-only)
+    # exact-fit RB shrinks the UNROLLED (A/B-only)
     # lane count...
     monkeypatch.setenv("GDCA_DI_TILED", "unrolled")
     assert di.planned_lane_count(N) == lanes_tiled
@@ -294,7 +294,7 @@ def test_di_flops_track_scoring_code(monkeypatch):
     monkeypatch.delenv("GDCA_DI_TILED", raising=False)
 
     # accounting_plan mirrors the REAL bm gate, not the caller's coarse
-    # flag (round-5 review finding: mesh / fused / small-N runs were
+    # flag (mesh and small-N runs were
     # billed under the mapped dense-tile trimmed plan they never run):
     # small P (< _BM_MIN_PAIRS: N=100 -> P=4950) executes the gemm
     # scaffold — exact lanes, FALLBACK iters, untrimmed
@@ -306,13 +306,11 @@ def test_di_flops_track_scoring_code(monkeypatch):
         N, requested_bm=True, sharded=True)
     assert lanes_sh == lanes_gathered and trimmed_sh
     assert iters_sh == di.BM_NS_ITERS
-    # GDCA_DI_FUSED routes through the gemm scaffold (di_pairs_flat
-    # chunk padding, ~bm-count iterations, untrimmed)
-    monkeypatch.setenv("GDCA_DI_FUSED", "1")
-    lanes_f, iters_f, trimmed_f = di.accounting_plan(N, requested_bm=True)
+    # requested_bm=False (the platform's table picks the gemm scaffold,
+    # or f64 / forced fallback): exact chunk-padded lanes, untrimmed
+    lanes_f, iters_f, trimmed_f = di.accounting_plan(N, requested_bm=False)
     assert lanes_f == di.planned_lane_count(N, bm=False)
-    assert iters_f == di.BM_NS_ITERS and not trimmed_f
-    monkeypatch.delenv("GDCA_DI_FUSED", raising=False)
+    assert iters_f == di.FALLBACK_NS_ITERS and not trimmed_f
     # and pipeline_flops(sharded=True) bills the sharded plan
     fl_sh = flops.pipeline_flops(100, N, 21, score="DI", sharded=True)
     assert fl_sh["score"] / fl_gath["score"] == 1.0
@@ -460,3 +458,48 @@ def test_di_flops_fallback_accounting():
     import inspect
     sig = inspect.signature(di.sqrtm_spd_fixed)
     assert sig.parameters["iters"].default == di.FALLBACK_NS_ITERS
+
+
+def test_compile_cache_env_dir_wins(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, 'auto' sets no directory of
+    its own (JAX reads the variable itself)."""
+    from gaussdca_tpu import cli
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    assert cli.compile_cache_dir("auto") is None
+    calls = []
+    monkeypatch.setattr("jax.config.update",
+                        lambda *a: calls.append(a))
+    cli.setup_compile_cache("auto")
+    assert calls == []
+
+
+def test_compile_cache_default_is_in_checkout(monkeypatch):
+    """Without the variable, 'auto' is one fixed path inside the
+    checkout (never the home directory, a temporary name or a PID)."""
+    import os
+
+    from gaussdca_tpu import cli
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = cli.compile_cache_dir("auto")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(cli.__file__)))
+    assert path == os.path.join(repo, ".jax_cache") == \
+        cli.DEFAULT_COMPILE_CACHE
+    assert cli.compile_cache_dir("auto") == path
+    with open(os.path.join(repo, ".gitignore")) as fh:
+        assert ".jax_cache/" in fh.read().split()
+
+
+def test_compile_cache_explicit_and_none(monkeypatch, tmp_path):
+    from gaussdca_tpu import cli
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    assert cli.compile_cache_dir("none") is None
+    assert cli.compile_cache_dir(str(tmp_path / "x")) == str(tmp_path / "x")
+    calls = []
+    monkeypatch.setattr("jax.config.update",
+                        lambda *a: calls.append(a))
+    cli.setup_compile_cache(str(tmp_path / "x"))
+    assert ("jax_compilation_cache_dir", str(tmp_path / "x")) in calls
+    assert (tmp_path / "x").is_dir()

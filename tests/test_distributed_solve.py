@@ -104,10 +104,9 @@ def test_storage_sharded_no_full_size_tensor():
 @pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 devices")
 def test_storage_sharded_memory_at_32768():
     """The same per-device memory property at the scale the design
-    claim is about (Ns = 32768: a 4 GiB f32 covariance — larger than
-    one v5e chip's comfortable replicated working set, VERDICT r2 item
-    2). Compile-only: the partitioned per-device HLO must hold no
-    tensor larger than the [n/ndev, n] row slab (512 MiB/device)."""
+    claim is about (Ns = 32768: a 4 GiB f32 covariance). Compile-only:
+    the partitioned per-device HLO must hold no tensor larger than the
+    [n/ndev, n] row slab (512 MiB/device)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     n = 32768

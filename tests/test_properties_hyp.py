@@ -124,19 +124,24 @@ def test_hyp_bucketing_equivalence(q, M, N, score, mb, nb, seed):
 
 
 @given(st.integers(30, 140), st.integers(5, 25), st.integers(2, 8),
-       st.sampled_from([8, 16]), st.integers(2, 3),
+       st.sampled_from([0, 8, 16, 40]), st.integers(0, 40),
        st.integers(0, 2 ** 31 - 1))
 @_h
-def test_asym_kernel_covering_exact(M, N, q, tile_b, k, seed):
-    """The grouped-A circulant covering counts every unordered pair
-    exactly once for arbitrary (M, tile_b, k, q) parities — including
-    the shapes where the wrapper must fall back to the square kernel."""
+def test_row_stats_exact(M, N, q, block_rows, ma, seed):
+    """The GEMM row stats equal the dense match-matrix reductions for
+    arbitrary (M, N, q, row block) and for a rectangular row slice —
+    including padding tokens, which match nothing."""
     rng = np.random.default_rng(seed)
-    Z = jnp.asarray(rng.integers(1, q + 1, size=(M, N), dtype=np.int8))
+    Z = jnp.asarray(rng.integers(0, q + 1, size=(M, N), dtype=np.int8))
     D = np.asarray(reweight.match_counts(Z))
     thresh = float(max(1, N // 3))
-    rowsum, below = distance.row_stats_asym_pallas(
-        Z, jnp.float32(thresh), q, tile_b=tile_b, k=k, interpret=True)
-    np.testing.assert_allclose(np.asarray(rowsum), D.sum(1))
-    np.testing.assert_allclose(np.asarray(below),
-                               ((N - D) < thresh).sum(1))
+    rowsum, below = distance.row_stats_xla(
+        Z, Z, jnp.float32(thresh), q, block_rows=block_rows)
+    np.testing.assert_array_equal(np.asarray(rowsum), D.sum(1))
+    np.testing.assert_array_equal(np.asarray(below),
+                                  ((N - D) < thresh).sum(1))
+    ma = max(1, min(ma, M))
+    ra, ba = distance.row_stats_xla(Z[:ma], Z, jnp.float32(thresh), q)
+    np.testing.assert_array_equal(np.asarray(ra), D[:ma].sum(1))
+    np.testing.assert_array_equal(np.asarray(ba),
+                                  ((N - D[:ma]) < thresh).sum(1))

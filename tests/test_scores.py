@@ -200,28 +200,24 @@ def test_printrank_stdout(capsys):
     assert outp == "1 7 2.500000e+00\n2 9 -1.250000e-01\n"
 
 
-def test_ns_sqrtm_pallas_interpret_matches_jnp():
-    """Fused NS kernel (+ HIGHEST polish) vs the reference sqrtm."""
-    import numpy as np
-    import jax.numpy as jnp
-    from gaussdca_tpu.ops.di_kernel import ns_sqrtm_pallas
-    from gaussdca_tpu.score.di import sqrtm_spd, _batch_eye
+def test_sqrtm_spd_fixed_matches_monitored():
+    """The fixed-iteration f32 Newton-Schulz square root (the gemm
+    scaffold's f32 path) agrees with the monitored f64 iteration."""
+    import jax
+    from gaussdca_tpu.score.di import sqrtm_spd, sqrtm_spd_fixed
 
     rng = np.random.default_rng(5)
-    P, s = 130, 20   # non-multiple of the tile: exercises identity pad
+    P, s = 130, 20
     A = rng.standard_normal((P, s, s)).astype(np.float32)
     G = jnp.asarray(np.einsum("pij,pkj->pik", A, A) / s +
                     np.eye(s, dtype=np.float32))
     want = np.asarray(sqrtm_spd(G.astype(jnp.float64))).astype(np.float32)
-
-    Y, Z, c = ns_sqrtm_pallas(G, tile_p=64, interpret=True)
-    eye = _batch_eye(s, (P,), jnp.float32)
-    for _ in range(2):
-        T = 1.5 * eye - 0.5 * jnp.einsum("pij,pjk->pik", Z, Y)
-        Y = jnp.einsum("pij,pjk->pik", Y, T)
-        Z = jnp.einsum("pij,pjk->pik", T, Z)
-    got = np.asarray(Y * jnp.sqrt(c.astype(jnp.float32)))
+    with jax.default_matmul_precision("highest"):
+        got = np.asarray(sqrtm_spd_fixed(G))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    # and it is a square root
+    np.testing.assert_allclose(np.einsum("pij,pjk->pik", got, got),
+                               np.asarray(G), rtol=2e-4, atol=2e-4)
 
 
 def test_di_batch_minor_matches_reference_path():

@@ -1,7 +1,7 @@
-"""Multi-chip equivalence on a virtual 8-device CPU mesh.
+"""Multi-device equivalence on a virtual 8-device CPU mesh.
 
 The reference has no distributed mode at all; the invariant here is the
-one that matters for the TPU build (SURVEY.md section 4): a k-device
+one that matters for the multi-card build (SURVEY.md section 4): a k-device
 sharded run produces the same scores as the single-device run.
 """
 
